@@ -1,0 +1,233 @@
+"""Batch-level LBMPC SQP on the two hand-written kernels (the kernel route).
+
+Port of lbmpc_tpu/controllers/sqp_fused.py, `qp_kernel="pallas_full"`: each
+Gauss-Newton (GN) iteration is two launches — K1 (ops/gn_kernel.GNPhase:
+residual, H and g for every lane) and K2 (ops/qp_kernel: the Mehrotra QP
+with a Hessian per lane, fed K1's H as it is) — followed by the batched
+l1-merit Armijo ladder in plain torch. float32 throughout, as the
+reference casts it.
+
+Other `qp_kernel` values (the XLA-composed ops/ipm_fused route, "pallas" and
+"pallas_mono") and the vmapped repair are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lbmpc_tpu_torch.controllers.condensed import CondensedQP
+from lbmpc_tpu_torch.controllers.lbmpc import LBMPCWeights
+from lbmpc_tpu_torch.device import resolve_device
+from lbmpc_tpu_torch.oracle import DataWindow
+from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
+from lbmpc_tpu_torch.ops.qp_kernel import QPSolverH
+
+_ALPHAS = (1.0, 0.5, 0.25, 0.125, 0.0625)
+_F32 = torch.float32
+
+
+def _check_route(qp_kernel: str, family: str, qp: CondensedQP) -> None:
+    if qp_kernel != "pallas_full":
+        raise ValueError(f"qp_kernel={qp_kernel!r} is not ported yet; the "
+                         "port has the kernel route qp_kernel='pallas_full'")
+    if family != "fmincon" or qp.m != 1:
+        raise ValueError("the kernel route covers the m=1 fmincon family; "
+                         f"family={family!r} is not ported yet")
+
+
+class FusedSolver:
+    """Returned by make_lbmpc_solver_fused. `solver(dx0, windows, z_ws)` ->
+    (z (B, nz), conv (B,)) casts to float32 on the solver's device;
+    `raw` takes float32 tensors as they are; with qp_warm, `raw_qpwarm`
+    (dx0, windows, z_ws, qp_state) -> (z, conv, qp_state) threads the QP
+    kernel's interior (s, z) across solves, seeded by `init_qp_state`."""
+
+    def __init__(self, qp: CondensedQP, A, B, Ks, w: LBMPCWeights,
+                 family: str = "fmincon", delta: float = 0.01,
+                 bandwidth: float = 0.5, ridge: float = 0.001, dx_ref=None,
+                 sqp_iters: int = 3, ipm_iters=20, tile: int | None = None,
+                 rho: float = 1e4, d_cap: float = 1e6,
+                 qp_kernel: str = "pallas_full", alphas: tuple = _ALPHAS,
+                 qp_warm: bool = False, warm_eps: float = 1e-5, device=None,
+                 plain: bool = False):
+        _check_route(qp_kernel, family, qp)
+        del tile  # the reference's TPU lane tile; nothing to tile here
+        self.device = dev = resolve_device(device)
+        self.sqp_iters = sqp_iters
+        self.rho = rho
+        self.alphas = alphas
+        self.qp_warm = qp_warm
+        self.plain = plain
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        self.G, self.h0, self.Hp = t(qp.G), t(qp.h0), t(qp.Hp)
+        self.nz = qp.nz
+        self.gn = GNPhase(qp, A, B, Ks, w, family=family, delta=delta,
+                          bandwidth=bandwidth, ridge=ridge, dx_ref=dx_ref,
+                          device=dev)
+        # ipm_iters: an int, or a per-GN-iteration schedule like `alphas`
+        sched = (tuple(ipm_iters) if isinstance(ipm_iters, (tuple, list))
+                 else (int(ipm_iters),) * sqp_iters)
+        self.ipm_sched = sched + (sched[-1],) * (sqp_iters - len(sched))
+        # per-position variants: with qp_warm, QP i>0 consumes the previous
+        # QP's interior state and QP i<last produces one; the receding-
+        # horizon chain (loop mode) makes every position warm-in and warm-out
+        self._qps = {}
+        for i in range(sqp_iters):
+            keys = [(self.ipm_sched[i],) + self._wio(i)]
+            if qp_warm:
+                keys.append((self.ipm_sched[i], True, True))
+            for key in keys:
+                self._qps[key] = QPSolverH(
+                    qp.G, iters=key[0], d_cap=d_cap, warm_in=key[1],
+                    warm_out=key[2], warm_eps=warm_eps, device=dev,
+                    plain=plain)
+
+    def _wio(self, i: int) -> tuple:
+        return (self.qp_warm and i > 0, self.qp_warm and i < self.sqp_iters - 1)
+
+    def _gn(self, z, dx0, windows):
+        return (self.gn.plain if self.plain else self.gn)(z, dx0, windows)
+
+    def cost(self, z, dx0, windows):
+        e = self.gn.residual(z, dx0, windows)
+        return (e * e).sum(dim=1)
+
+    def __call__(self, dx0, windows: DataWindow, z_ws):
+        dev = self.device
+        return self.raw(dx0.to(dev, _F32), windows.to(_F32, dev),
+                        z_ws.to(dev, _F32))
+
+    def raw(self, dx0, windows: DataWindow, z):
+        return self._solve(dx0, windows, z, None)[:2]
+
+    def raw_qpwarm(self, dx0, windows: DataWindow, z, qp_state):
+        if not self.qp_warm:
+            raise ValueError("raw_qpwarm needs qp_warm=True")
+        return self._solve(dx0, windows, z, qp_state)
+
+    def init_qp_state(self, dx0, z_ws):
+        h = self.h0[None, :] + dx0.to(_F32) @ self.Hp.T
+        return QPSolverH.cold_state(h - z_ws.to(_F32) @ self.G.T)
+
+    def _solve(self, dx0, windows: DataWindow, z, qp_state):
+        loop = qp_state is not None
+        G = self.G
+        h = self.h0[None, :] + dx0 @ self.Hp.T
+        per_gn = isinstance(self.alphas[0], (tuple, list))
+        mu_last = torch.zeros(dx0.shape[0], dtype=_F32, device=dx0.device)
+        warm_state = qp_state
+        for it in range(self.sqp_iters):
+            sched = (tuple(self.alphas[min(it, len(self.alphas) - 1)])
+                     if per_gn else tuple(self.alphas))
+            e, H, gb = self._gn(z, dx0, windows)
+            win, wout = (True, True) if loop else self._wio(it)
+            qp = self._qps[(self.ipm_sched[it], win, wout)]
+            out = qp.raw_packed(H, gb, h - z @ G.T, warm_state)
+            d, mu_last = out[0], out[1]
+            warm_state = out[2] if wout else None
+            # merit at the current iterate reuses K1's residual
+            v0 = torch.clamp(z @ G.T - h, min=0.0).sum(dim=1)
+            m0 = (e * e).sum(dim=1) + self.rho * v0
+            dirderiv = (gb * d).sum(dim=1) - self.rho * v0
+            # fixed Armijo ladder; if every alpha is rejected (e.g. a NaN
+            # direction: NaN merits compare false) the lane takes NO step
+            accepted = torch.zeros_like(m0, dtype=torch.bool)
+            alpha_sel = torch.zeros_like(m0)
+            for a in sched:
+                za = z + a * d
+                m_a = (self.cost(za, dx0, windows)
+                       + self.rho * torch.clamp(za @ G.T - h, min=0.0).sum(dim=1))
+                ok = ~accepted & (m_a <= m0 + 1e-4 * a * dirderiv)
+                alpha_sel = torch.where(ok, a, alpha_sel)
+                accepted = accepted | ok
+            d = torch.where(torch.isfinite(d), d, 0.0)
+            z = z + alpha_sel[:, None] * d
+        # controller-level convergence: feasible, finite, sane last QP
+        h_scale = 1.0 + h.abs().amax(dim=1)
+        viol = (z @ G.T - h).amax(dim=1)
+        conv = ((viol <= 2e-3 * h_scale) & torch.isfinite(z).all(dim=1)
+                & (mu_last < 1e-2))
+        return z, conv, warm_state
+
+
+def make_lbmpc_solver_fused(qp: CondensedQP, A, B, Ks, w: LBMPCWeights,
+                            **kw) -> FusedSolver:
+    """The reference factory's name for FusedSolver (same keywords; `tile`
+    is accepted and ignored, `device` and `plain` are the port's)."""
+    return FusedSolver(qp, A, B, Ks, w, **kw)
+
+
+class HybridSolver:
+    """Fused batch SQP + a fixed-size compacted repair of flagged lanes
+    (make_lbmpc_solver_hybrid, repair_backend="fused"): the K =
+    round(B * repair_frac) lanes flagged first (stable order, as
+    lax.top_k ranks ties) are gathered, re-solved through the same kernels
+    with the repair budget from the fused iterate (repair_warm="fused"),
+    and scattered back where a lane was flagged."""
+
+    def __init__(self, qp: CondensedQP, A, B, Ks, w: LBMPCWeights,
+                 family: str = "fmincon", delta: float = 0.01,
+                 bandwidth: float = 0.5, ridge: float = 0.001, dx_ref=None,
+                 sqp_iters: int = 3, ipm_iters=20, tile: int | None = None,
+                 rho: float = 1e4, repair_frac: float = 1.0 / 16.0,
+                 repair_ipm_iters: int = 30, repair_sqp_iters: int | None = None,
+                 repair_warm: str = "ws", qp_kernel: str = "pallas_full",
+                 alphas: tuple = _ALPHAS, repair_backend: str = "vmapped",
+                 qp_warm: bool = False, device=None, plain: bool = False):
+        if repair_backend != "fused" or repair_warm != "fused":
+            raise ValueError(
+                f"repair_backend={repair_backend!r}, repair_warm={repair_warm!r}: "
+                "not ported yet; the port has the fused repair seeded at the "
+                "fused iterate (repair_backend='fused', repair_warm='fused')")
+        common = dict(family=family, delta=delta, bandwidth=bandwidth,
+                      ridge=ridge, dx_ref=dx_ref, rho=rho,
+                      qp_kernel=qp_kernel, device=device, plain=plain)
+        self.fused = FusedSolver(qp, A, B, Ks, w, sqp_iters=sqp_iters,
+                                 ipm_iters=ipm_iters, alphas=alphas,
+                                 qp_warm=qp_warm, **common)
+        self.repair = FusedSolver(qp, A, B, Ks, w,
+                                  sqp_iters=repair_sqp_iters or sqp_iters,
+                                  ipm_iters=repair_ipm_iters,
+                                  alphas=(1.0, 0.5, 0.25), **common)
+        self.device = self.fused.device
+        self.repair_frac = repair_frac
+        self.init_qp_state = self.fused.init_qp_state
+
+    def _repair(self, z, conv, dx0, windows: DataWindow, z_ws):
+        Bsz = dx0.shape[0]
+        K = max(1, min(Bsz, int(round(Bsz * self.repair_frac))))
+        flagged = ~conv
+        idx = torch.argsort(flagged.to(_F32), descending=True, stable=True)[:K]
+        take = flagged[idx]
+        z_seed = torch.where(torch.isfinite(z[idx]), z[idx], z_ws[idx])
+        z_r, conv_r = self.repair.raw(dx0[idx], windows.index(idx), z_seed)
+        z_r = torch.where(torch.isfinite(z_r), z_r, 0.0)
+        z = z.clone()
+        conv = conv.clone()
+        z[idx] = torch.where(take[:, None], z_r, z[idx])
+        conv[idx] = torch.where(take, conv_r, conv[idx])
+        return z, conv
+
+    def __call__(self, dx0, windows: DataWindow, z_ws):
+        dev = self.device
+        return self.raw(dx0.to(dev, _F32), windows.to(_F32, dev),
+                        z_ws.to(dev, _F32))
+
+    def raw(self, dx0, windows: DataWindow, z_ws):
+        z, conv = self.fused.raw(dx0, windows, z_ws)
+        return self._repair(z, conv, dx0, windows, z_ws)
+
+    def raw_qpwarm(self, dx0, windows: DataWindow, z_ws, qp_state):
+        """Cross-step warm chain with the per-step repair riding along: the
+        repair touches z and conv only; the carried interior state is the
+        fused path's."""
+        z, conv, qp_state = self.fused.raw_qpwarm(dx0, windows, z_ws, qp_state)
+        z, conv = self._repair(z, conv, dx0, windows, z_ws)
+        return z, conv, qp_state
+
+
+def make_lbmpc_solver_hybrid(qp: CondensedQP, A, B, Ks, w: LBMPCWeights,
+                             **kw) -> HybridSolver:
+    """The reference factory's name for HybridSolver."""
+    return HybridSolver(qp, A, B, Ks, w, **kw)

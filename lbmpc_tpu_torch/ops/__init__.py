@@ -1,0 +1,1 @@
+"""The hand-written CUDA kernels and their plain PyTorch versions."""

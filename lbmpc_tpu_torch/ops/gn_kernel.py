@@ -1,0 +1,114 @@
+"""K1 — the Gauss-Newton phase: learned-rollout residual e, H = 2J'J + 1e-6 I
+and g = 2J'e for every lane, in one launch (csrc/gn_phase.cu).
+
+Port of lbmpc_tpu/ops/pallas_gn.py (build_pallas_gn_kernel, fmincon family).
+The wrapper routes by device: a CUDA tensor always launches the kernel; a
+CPU tensor takes the plain version, which builds J with
+controllers/lbmpc.make_residual_and_jac and forms the normal terms with
+matrix products. H comes out as (B, nz, nz), row-major and symmetric — the
+layout ops/qp_kernel.py's kernel reads without a copy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lbmpc_tpu_torch.controllers.lbmpc import (make_residual_and_jac,
+                                               residual_rows)
+from lbmpc_tpu_torch.device import resolve_device
+from lbmpc_tpu_torch.oracle import DataWindow
+from lbmpc_tpu_torch.ops._cuda import I, P, CudaKernel, check, ptr
+
+KERNEL = CudaKernel("gn_phase", [P] * 9 + [I, I, I, P])
+
+# constant block offsets (csrc/gn_phase.cu enum)
+_C_A, _C_B, _C_KS, _C_LQ, _C_LP, _C_LAM, _C_XSREF = 0, 16, 20, 24, 40, 56, 60
+_C_LR, _C_PSI, _C_SQRTT, _C_INVBW2, _C_RIDGE, _C_HCONST = 64, 65, 66, 67, 68, 72
+_RIDGE_H = 1e-6
+
+
+class GNPhase:
+    """K1 for one condensed QP: holds the kernel's constant block and the
+    plain version's residual/Jacobian functions (float32, on `device`).
+
+    Calling it returns (e (B, ne), H (B, nz, nz), g (B, nz)) for
+    z (B, nz), dx0 (B, n) and a window batched over the same lanes."""
+
+    def __init__(self, qp, A, B, Ks, w, family: str = "fmincon",
+                 delta: float = 0.01, bandwidth: float = 0.5,
+                 ridge: float = 0.001, dx_ref=None, device=None):
+        self.device = resolve_device(device)
+        self.N, self.n, self.m = qp.N, qp.n, qp.m
+        self.nz = qp.nz
+        self.family = family
+        self.ne = residual_rows(qp.N, qp.n, qp.m, family)
+        self.residual, self.res_jac = make_residual_and_jac(
+            qp, A, B, Ks, w, family=family, delta=delta, bandwidth=bandwidth,
+            ridge=ridge, dx_ref=dx_ref, dtype=torch.float32, device=self.device)
+        self._eye = _RIDGE_H * torch.eye(self.nz, dtype=torch.float32,
+                                         device=self.device)
+        nth = np.atleast_2d(np.asarray(w.LAMBDA)).shape[1]
+        self.kernel_ok = (family == "fmincon" and qp.n == 4 and qp.m == 1
+                          and nth == 1 and 3 <= qp.N and qp.nz <= 32)
+        if self.kernel_ok:
+            self.cst = self._constants(A, B, Ks, w, bandwidth, ridge, dx_ref)
+
+    def _constants(self, A, B, Ks, w, bandwidth, ridge, dx_ref) -> torch.Tensor:
+        nz, N = self.nz, self.N
+        c = np.zeros(_C_HCONST + nz * nz)
+        c[_C_A:_C_A + 16] = np.asarray(A, float).ravel()
+        c[_C_B:_C_B + 4] = np.asarray(B, float).ravel()
+        c[_C_KS:_C_KS + 4] = np.asarray(Ks, float).ravel()
+        c[_C_LQ:_C_LQ + 16] = np.asarray(w.Lq, float).ravel()
+        c[_C_LP:_C_LP + 16] = np.asarray(w.Lp, float).ravel()
+        LAM = np.asarray(w.LAMBDA, float).ravel()
+        c[_C_LAM:_C_LAM + 4] = LAM
+        c[_C_XSREF:_C_XSREF + 4] = (np.zeros(4) if dx_ref is None
+                                    else np.asarray(dx_ref, float))
+        c[_C_LR] = float(np.asarray(w.Lr).ravel()[0])
+        c[_C_PSI] = float(np.asarray(w.PSI).ravel()[0])
+        c[_C_SQRTT] = float(w.sqrtT)
+        c[_C_INVBW2] = 1.0 / (bandwidth * bandwidth)
+        c[_C_RIDGE] = ridge
+        # Hconst: the SQP's ridge and the constant rT rows' 2 J'J block
+        JrT = np.zeros((4, nz))
+        JrT[:, N] = w.sqrtT * LAM
+        c[_C_HCONST:] = (_RIDGE_H * np.eye(nz) + 2.0 * JrT.T @ JrT).ravel()
+        return torch.as_tensor(c, dtype=torch.float32, device=self.device)
+
+    def plain(self, z, dx0, window: DataWindow):
+        """The plain PyTorch version: same function, any device."""
+        e, J = self.res_jac(z, dx0, window)
+        Jt = J.transpose(1, 2)
+        H = 2.0 * (Jt @ J) + self._eye
+        g = 2.0 * (Jt @ e[..., None])[..., 0]
+        return e, H, g
+
+    def __call__(self, z, dx0, window: DataWindow):
+        if z.device.type == "cpu":
+            return self.plain(z, dx0, window)
+        if z.device.type != "cuda":
+            raise ValueError(f"gn_phase runs on cuda or cpu, not {z.device}")
+        return self._launch(z, dx0, window)
+
+    def _launch(self, z, dx0, window: DataWindow):
+        if not self.kernel_ok:
+            raise ValueError("the gn_phase kernel covers the fmincon family "
+                             "with n=4, m=1, one theta and nz <= 32")
+        dev = z.device
+        Bsz = z.shape[0]
+        q = window.X.shape[-2]
+        check("z", z, (Bsz, self.nz), dev)
+        check("dx0", dx0, (Bsz, self.n), dev)
+        check("window.X", window.X, (Bsz, q, 3), dev)
+        check("window.Y", window.Y, (Bsz, q, self.n), dev)
+        check("window.valid", window.valid, (Bsz, q), dev)
+        check("constants", self.cst, tuple(self.cst.shape), dev)
+        e = torch.empty(Bsz, self.ne, dtype=torch.float32, device=dev)
+        H = torch.empty(Bsz, self.nz, self.nz, dtype=torch.float32, device=dev)
+        g = torch.empty(Bsz, self.nz, dtype=torch.float32, device=dev)
+        KERNEL.launch(dev, ptr(self.cst), ptr(z), ptr(dx0), ptr(window.X),
+                      ptr(window.Y), ptr(window.valid), ptr(e), ptr(H), ptr(g),
+                      I(Bsz), I(self.N), I(q))
+        return e, H, g

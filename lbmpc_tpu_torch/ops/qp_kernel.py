@@ -1,0 +1,205 @@
+"""K2 — the per-lane-Hessian Mehrotra QP: the whole fixed-iteration
+predictor-corrector loop in one launch (csrc/mehrotra_h.cu).
+
+Port of lbmpc_tpu/ops/pallas_ipm.py (build_pallas_qp_solver_h). Each lane
+solves min 1/2 x'H_b x + g_b'x s.t. G x <= h_b with G shared by the batch.
+The wrapper routes by device: a CUDA tensor always launches the kernel; a
+CPU tensor takes the plain version below. The warm state is the port's own
+layout: a tuple (s, z) of (B, mI) float32 tensors in G's row order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lbmpc_tpu_torch.device import resolve_device
+from lbmpc_tpu_torch.ops._cuda import F, I, P, CudaKernel, check, ptr
+
+KERNEL = CudaKernel("mehrotra_h", [P] * 10 + [I, I, I, I, F, F, F, P])
+
+BIG = 1e6          # ratio-test sentinel (pallas_ipm.py:34)
+RIDGE = 1e-6       # KKT ridge
+
+
+def analyze_constraint_rows(G: np.ndarray) -> dict:
+    """Host-side constraint-row analysis (the reference's, kept for the
+    shapes it reports): the dominant 2-column-support group ("split-G", mS
+    rows; >= 64 rows sharing one {ca, cb} support) and the remaining dense
+    rows sorted by their last nonzero column. The CUDA kernel does not need
+    either restatement; the bench shape has mS = 0."""
+    Gn = np.asarray(G, np.float32)
+    mI, nz = Gn.shape
+    supports = [np.nonzero(Gn[i])[0] for i in range(mI)]
+    groups: dict = {}
+    for i, s in enumerate(supports):
+        if 0 < len(s) <= 2:
+            groups.setdefault((int(s[0]), int(s[-1])), []).append(i)
+    best = max(groups.items(), key=lambda kv: len(kv[1]), default=None)
+    if best is not None and len(best[1]) >= 64 and best[0][0] != best[0][1]:
+        (ca, cb), sp_rows = best
+        sp_rows = list(sp_rows)
+    else:
+        ca = cb = 0
+        sp_rows = []
+    sp_set = set(sp_rows)
+    d_rows = [i for i in range(mI) if i not in sp_set]
+    maxc = {i: (int(supports[i][-1]) if len(supports[i]) else 0) for i in d_rows}
+    d_rows = sorted(d_rows, key=lambda i: maxc[i])
+    return dict(ca=ca, cb=cb, sp_rows=sp_rows, d_rows=d_rows, mD=len(d_rows),
+                mS=len(sp_rows))
+
+
+def _cholesky_floor(M: torch.Tensor) -> torch.Tensor:
+    """Left-looking batched Cholesky with the kernel's pivot floor
+    sqrt(max(., 1e-30)) (pallas_ipm.py:328); reads M's lower triangle."""
+    nz = M.shape[-1]
+    L = torch.zeros_like(M)
+    for j in range(nz):
+        acc = M[:, :, j] - (L[:, :, :j] @ L[:, j, :j, None])[..., 0]
+        djj = torch.sqrt(torch.clamp(acc[:, j], min=1e-30))
+        col = acc / djj[:, None]
+        col[:, :j] = 0.0
+        L[:, :, j] = col
+    return L
+
+
+def mehrotra_h_plain(G, H, g, h, iters: int, tau: float = 0.995,
+                     d_cap: float = 1e6, warm=None, warm_eps: float = 1e-5):
+    """The plain PyTorch version of the kernel (same iteration, batched
+    tensor ops). Returns (x (B, nz), mu (B,), (s, z))."""
+    Bsz, nz = g.shape
+    mI = G.shape[0]
+    x = torch.zeros(Bsz, nz, dtype=g.dtype, device=g.device)
+    if warm is None:
+        s = torch.clamp(h, min=1.0)
+        z = torch.ones_like(h)
+    else:
+        s = torch.clamp(warm[0], min=warm_eps)
+        z = torch.clamp(warm[1], min=warm_eps)
+    eye = RIDGE * torch.eye(nz, dtype=g.dtype, device=g.device)
+    Gt = G.T
+
+    def ratio_min(v, dv):
+        ratio = torch.where(dv < 0, -v / torch.where(dv < 0, dv, -1.0), BIG)
+        return ratio.amin(dim=1)
+
+    for _ in range(iters):
+        rd = (H @ x[..., None])[..., 0] + g + z @ G
+        rp = x @ Gt + s - h
+        s_safe = torch.clamp(s, min=1e-25)
+        d = torch.clamp(z / s_safe, max=d_cap)
+        M = (Gt * d[:, None, :]) @ G + H + eye
+        sc = torch.rsqrt(torch.clamp(torch.diagonal(M, dim1=1, dim2=2), min=1e-30))
+        L = _cholesky_floor(M * sc[:, :, None] * sc[:, None, :])
+
+        def kkt(rc):
+            t = d * rp - rc / s_safe
+            b = -(rd + t @ G) * sc
+            y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+            u = torch.linalg.solve_triangular(L.transpose(1, 2), y, upper=True)
+            dx = u[..., 0] * sc
+            Gdx = dx @ Gt
+            return dx, -rp - Gdx, d * (rp + Gdx) - rc / s_safe
+
+        mu = (s * z).sum(dim=1) / mI
+        _, dsa, dza = kkt(s * z)
+        ap = torch.clamp(ratio_min(s, dsa), max=1.0)[:, None]
+        ad = torch.clamp(ratio_min(z, dza), max=1.0)[:, None]
+        mu_aff = ((s + ap * dsa) * (z + ad * dza)).sum(dim=1) / mI
+        sr = mu_aff / torch.clamp(mu, min=1e-25)
+        sigma = sr * sr * sr
+        dx, ds, dz = kkt(s * z + dsa * dza - (sigma * mu)[:, None])
+        ap = torch.clamp(tau * ratio_min(s, ds), max=1.0)[:, None]
+        ad = torch.clamp(tau * ratio_min(z, dz), max=1.0)[:, None]
+        x = x + ap * dx
+        s = s + ap * ds
+        z = z + ad * dz
+    return x, (s * z).sum(dim=1) / mI, (s, z)
+
+
+def mehrotra_h(G, H, g, h, iters: int, tau: float = 0.995, d_cap: float = 1e6,
+               warm=None, warm_eps: float = 1e-5, want_state: bool = False):
+    """Route one batched solve: CUDA tensors launch the kernel, CPU tensors
+    take mehrotra_h_plain. Returns (x, mu, (s, z) or None)."""
+    if g.device.type == "cpu":
+        x, mu, state = mehrotra_h_plain(G, H, g, h, iters, tau, d_cap, warm,
+                                        warm_eps)
+        return x, mu, (state if want_state else None)
+    if g.device.type != "cuda":
+        raise ValueError(f"mehrotra_h runs on cuda or cpu, not {g.device}")
+    dev = g.device
+    Bsz, nz = g.shape
+    mI = G.shape[0]
+    if nz > 32 or mI > 1024:
+        raise ValueError(f"the mehrotra_h kernel takes nz <= 32 and mI <= 1024 "
+                         f"(got nz={nz}, mI={mI})")
+    check("G", G, (mI, nz), dev)
+    check("H", H, (Bsz, nz, nz), dev)
+    check("g", g, (Bsz, nz), dev)
+    check("h", h, (Bsz, mI), dev)
+    if warm is not None:
+        check("warm s", warm[0], (Bsz, mI), dev)
+        check("warm z", warm[1], (Bsz, mI), dev)
+    x = torch.empty(Bsz, nz, dtype=torch.float32, device=dev)
+    mu = torch.empty(Bsz, dtype=torch.float32, device=dev)
+    state = ((torch.empty(Bsz, mI, dtype=torch.float32, device=dev),
+              torch.empty(Bsz, mI, dtype=torch.float32, device=dev))
+             if want_state else None)
+    null = P(None)
+    KERNEL.launch(dev, ptr(G), ptr(H), ptr(g), ptr(h),
+                  ptr(warm[0]) if warm is not None else null,
+                  ptr(warm[1]) if warm is not None else null,
+                  ptr(x), ptr(mu),
+                  ptr(state[0]) if want_state else null,
+                  ptr(state[1]) if want_state else null,
+                  I(Bsz), I(mI), I(nz), I(iters), F(tau), F(d_cap),
+                  F(warm_eps))
+    return x, mu, state
+
+
+class QPSolverH:
+    """A Mehrotra QP solver for a fixed G and schedule (the reference's
+    build_pallas_qp_solver_h): `solver(H_b, g, h, warm=None)` is `raw`;
+    `raw_packed` is the K1 hand-off entry (H straight from the GN kernel,
+    (B, nz, nz) float32, used without a copy); `cold_state(h)` is the warm
+    state equal to a cold start. Returns (x, mu) or, with warm_out,
+    (x, mu, (s, z))."""
+
+    def __init__(self, G, iters: int = 16, tau: float = 0.995,
+                 d_cap: float = 1e6, warm_in: bool = False,
+                 warm_out: bool = False, warm_eps: float = 1e-5, device=None,
+                 plain: bool = False):
+        dev = resolve_device(device)
+        self.G = torch.as_tensor(np.asarray(G, np.float32), device=dev)
+        self.iters, self.tau, self.d_cap = int(iters), float(tau), float(d_cap)
+        self.warm_in, self.warm_out = bool(warm_in), bool(warm_out)
+        self.warm_eps = float(warm_eps)
+        self.plain = plain
+
+    def __call__(self, H_b, g, h, warm=None):
+        return self.raw_packed(H_b.to(torch.float32).contiguous(), g, h, warm)
+
+    def raw_packed(self, H, g, h, warm=None):
+        if self.warm_in and warm is None:
+            raise ValueError("a warm_in solver needs the previous QP's warm state")
+        if not self.warm_in:
+            warm = None
+        g = g.to(torch.float32).contiguous()
+        h = h.to(torch.float32).contiguous()
+        if self.plain:
+            x, mu, state = mehrotra_h_plain(self.G, H, g, h, self.iters,
+                                            self.tau, self.d_cap, warm,
+                                            self.warm_eps)
+        else:
+            x, mu, state = mehrotra_h(self.G, H, g, h, self.iters, self.tau,
+                                      self.d_cap, warm, self.warm_eps,
+                                      want_state=self.warm_out)
+        return (x, mu, state) if self.warm_out else (x, mu)
+
+    @staticmethod
+    def cold_state(h):
+        """(s, z) = (max(h, 1), 1): fed to a warm_in solver it reproduces the
+        cold start bit for bit (max(s, eps) and max(z, eps) are identities)."""
+        h = h.to(torch.float32)
+        return torch.clamp(h, min=1.0), torch.ones_like(h)

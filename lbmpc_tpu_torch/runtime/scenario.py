@@ -1,0 +1,155 @@
+"""Scenario assembly: preset -> host matrices -> fleet episode on the device.
+
+Port of lbmpc_tpu/runtime/scenario.py for the fmincon-family LBMPC presets:
+`build_scenario` does the host setup (DLTI, matOCP synthesis, the
+constraint set, the condensed QP, the Gauss-Newton weights) and builds no
+solver; `build_fleet_episode` runs a cohort through the batch-level SQP on
+the two kernels (ref: examples/LBMPC_RunExample.m:10-107).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from lbmpc_tpu_torch.config import ScenarioConfig, make_preset
+from lbmpc_tpu_torch.controllers.condensed import CondensedQP, build_fmincon_lmpc
+from lbmpc_tpu_torch.controllers.lbmpc import LBMPCWeights
+from lbmpc_tpu_torch.device import resolve_device
+from lbmpc_tpu_torch.models.mgcm import mg2_dlti, mg2_ode, mgcm_dlti, rk23_step
+from lbmpc_tpu_torch.oracle import init_window
+from lbmpc_tpu_torch.runtime.closed_loop import (ClosedLoopResult,
+                                                 run_closed_loop_batched)
+from lbmpc_tpu_torch.sets.terminal import (ConstraintSet, get_cons,
+                                           get_cons_poly, get_cons_robust_ks)
+from lbmpc_tpu_torch.synthesis import OCPMatrices, mat_ocp
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """Host-side scenario: matrices, constraint set, condensed QP, weights."""
+
+    cfg: ScenarioConfig
+    A: np.ndarray
+    B: np.ndarray
+    ocp: OCPMatrices
+    cs: ConstraintSet
+    qp: CondensedQP
+    w: LBMPCWeights
+
+    @property
+    def nz(self) -> int:
+        return self.qp.nz
+
+
+def build_scenario(name_or_cfg) -> Scenario:
+    """Host setup of an fmincon-family LBMPC preset (no solver is built)."""
+    cfg = (name_or_cfg if isinstance(name_or_cfg, ScenarioConfig)
+           else make_preset(name_or_cfg))
+    if cfg.controller != "lbmpc" or cfg.family != "fmincon":
+        raise ValueError("the port's scenarios cover fmincon-family LBMPC; "
+                         f"controller={cfg.controller!r}, family={cfg.family!r} "
+                         "are not ported yet")
+    p = cfg.plant
+    mg2 = p.model == "mg2"
+    A, B, C, _ = (mg2_dlti if mg2 else mgcm_dlti)(p.ts)
+    ocp = mat_ocp(A, B, C, poles=cfg.ocp.poles, T=cfg.ocp.T)
+    common = dict(x_min=p.x_min, x_max=p.x_max, u_min=p.u_min, u_max=p.u_max,
+                  x_wp=p.x_wp, u_wp=p.u_wp)
+    if cfg.ocp.robust_tube:
+        cs = get_cons_robust_ks(
+            **common, state_uncert=p.tube_uncert or p.state_uncert,
+            A=A, B=B, Ks=ocp.Ks, LAMBDA=ocp.LAMBDA, PSI=ocp.PSI,
+            LAMBDA_0=ocp.LAMBDA_0, PSI_0=ocp.PSI_0)
+    elif cfg.ocp.tighten_first_step:
+        cs = get_cons_poly(
+            **common, state_uncert=p.state_uncert, A=A, B=B, Q=ocp.Q, R=ocp.R,
+            LAMBDA=ocp.LAMBDA, PSI=ocp.PSI, LAMBDA_0=ocp.LAMBDA_0,
+            PSI_0=ocp.PSI_0)
+    else:
+        cs = get_cons(
+            **common, A=A, B=B, K=ocp.Ks, LAMBDA=ocp.LAMBDA, PSI=ocp.PSI,
+            LAMBDA_0=ocp.LAMBDA_0, PSI_0=ocp.PSI_0)
+    qp = build_fmincon_lmpc(
+        A, B, ocp.Ks, ocp.Q, ocp.R, ocp.P, ocp.T, ocp.LAMBDA, ocp.PSI, cs,
+        cfg.ocp.N, dx_ref=np.asarray(cfg.dx_ref),
+        terminal_at=cfg.ocp.terminal_at,
+        tighten_first_step=cfg.ocp.tighten_first_step)
+    w = LBMPCWeights.make(ocp.Q, ocp.R, ocp.P, ocp.T, ocp.LAMBDA, ocp.PSI)
+    return Scenario(cfg=cfg, A=A, B=B, ocp=ocp, cs=cs, qp=qp, w=w)
+
+
+def build_fleet_episode(name_or_cfg, ipm_iters=None,
+                        sqp_iters: int | None = None,
+                        backend: str = "fused",
+                        repair_frac: float = 1.0 / 85.0,
+                        qp_kernel: str = "pallas_full",
+                        alphas=None,
+                        qp_warm: bool = False,
+                        warm_chain: bool = False,
+                        device=None,
+                        plain: bool = False):
+    """Batch-level LBMPC episode on the kernel route (float32).
+
+    Returns (scenario, run) with run(dx_init (B, n)) -> ClosedLoopResult,
+    histories batch-first. backend="hybrid" adds the compacted per-step
+    repair through the same kernels (1 GN x 8 IPM, seeded at the fused
+    iterate); warm_chain threads the QP kernel's interior state across steps
+    (needs qp_warm). plain=True runs the kernels' plain versions on the same
+    device — the reference route for comparisons on the card.
+    """
+    from lbmpc_tpu_torch.controllers.sqp_fused import (make_lbmpc_solver_fused,
+                                                       make_lbmpc_solver_hybrid)
+
+    sc = build_scenario(name_or_cfg)
+    cfg = sc.cfg
+    if backend not in ("fused", "hybrid"):
+        raise ValueError(f"backend={backend!r}")
+    if warm_chain and not qp_warm:
+        raise ValueError("warm_chain needs qp_warm=True")
+    dev = resolve_device(device)
+    p = cfg.plant
+    plant_ode = mg2_ode if p.model == "mg2" else None
+    extra = dict(qp_kernel=qp_kernel, alphas=alphas or ((1.0,), (1.0, 0.5, 0.25)),
+                 qp_warm=qp_warm)
+    if backend == "hybrid":
+        factory = make_lbmpc_solver_hybrid
+        extra.update(repair_frac=repair_frac, repair_sqp_iters=1,
+                     repair_ipm_iters=8, repair_warm="fused",
+                     repair_backend="fused")
+    else:
+        factory = make_lbmpc_solver_fused
+    solver = factory(
+        sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, family="fmincon", delta=p.ts,
+        bandwidth=cfg.oracle.bandwidth, ridge=cfg.oracle.ridge,
+        dx_ref=np.asarray(cfg.dx_ref),
+        sqp_iters=sqp_iters or cfg.solver.sqp_iters,
+        ipm_iters=ipm_iters or cfg.solver.ipm_iters,
+        device=dev, plain=plain, **extra)
+    f32 = torch.float32
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    Ks, A, B = t(np.atleast_2d(sc.ocp.Ks)), t(sc.A), t(sc.B)
+    LAM, x_wp, u_wp = t(sc.ocp.LAMBDA), t(p.x_wp), t([p.u_wp])
+
+    def plant(x, u):
+        return rk23_step(x, u[:, 0], p.ts, ode=plant_ode)
+
+    def run(dx_init) -> ClosedLoopResult:
+        dx_init = torch.as_tensor(dx_init, dtype=f32, device=dev)
+        B0 = dx_init.shape[0]
+        windows0 = init_window(cfg.oracle.q, d_out=cfg.oracle.d_out, dtype=f32,
+                               batch=(B0,), device=dev)
+        chain_kw = {}
+        if warm_chain:
+            chain_kw = dict(qp_warm_solve=solver.raw_qpwarm,
+                            qp_init_state=solver.init_qp_state)
+        return run_closed_loop_batched(
+            solver.raw, plant, lambda z, dxu, dxn, w_: z, Ks, A, B, LAM,
+            x_wp, u_wp, dx_init, torch.zeros(B0, sc.nz, dtype=f32, device=dev),
+            windows0, cfg.iterations, learn=cfg.learn_online,
+            log_post_state=False, **chain_kw)
+
+    run.solver = solver
+    return sc, run
