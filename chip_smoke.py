@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (lbmpc_tpu_torch) on one NVIDIA GPU.
 
-Builds the two CUDA kernels from lbmpc_tpu_torch/csrc/ with nvcc (sm_90a),
-holds each against its plain PyTorch version at the main path's shapes, runs
-the fused LBMPC SQP solve at batch 2048 and the warm-chain hybrid fleet
-closed loop at a cohort of 8192 (N=20, q=100 — the bench configuration of
-bench.py), counts the kernel launches of that fleet run, and times the
-kernels, their plain versions, the solve and the fleet step with CUDA
-events.
+Builds the CUDA kernels from lbmpc_tpu_torch/csrc/ with nvcc (sm_90a, one
+nvcc per source, all at once) and holds each against its plain PyTorch
+version at its path's shapes. Then it drives two paths, each with the launch
+counts set to 0 just before it and read just after:
+- the kernel route (qp_kernel="pallas_full", K1 gn_phase + K2 mehrotra_h):
+  the fused and hybrid solves at batch 2048 and the warm-chain hybrid fleet
+  at a cohort of 8192 (N=20, q=100 — the bench configuration of bench.py);
+- the default xla route (ops/ipm_fused on K5a chol_factor_solve, K5b
+  chol_solve, K5c chol_resolve): the fused solve at batch 2048, the DMS
+  flagship (casadi, N=100, q=100, nz=101) at batch 1024 with L stored and
+  with LBMPC_CHOL_STORE=0, and the default fused fleet at the cohort.
+It times the kernels, their plain versions, the library yardsticks, the
+solves and the fleet steps with CUDA events.
 
     python3 chip_smoke.py                 # every phase (needs one card)
-    python3 chip_smoke.py --stop-after 3  # build + kernel checks only
-    python3 chip_smoke.py --profile       # + a torch.profiler trace of 3 fleet steps
+    python3 chip_smoke.py --stop-after 3  # build + K1/K2 checks only
+    python3 chip_smoke.py --profile       # + torch.profiler traces of 3 steps of each fleet
 
 Exits non-zero, and prints no result, without CUDA or outside a checkout
 of the repository; any failed phase raises. The last line of standard output
@@ -37,6 +43,9 @@ N, Q, BATCH, COHORT, STEPS = 20, 100, 2048, 8192, 20
 LADDER = ((1.0,), (1.0, 0.5, 0.25))
 IPM_SCHED = (8, 2)
 REPAIR_K = 24
+XLA_SCHED = (16, 8)          # the xla route's IPM schedule (bench_dms_flagship.py:118)
+DMS_BATCH = 1024
+LAST_PHASE = 12
 
 
 def log(msg: str) -> None:
@@ -121,8 +130,8 @@ def bench_inputs(rng, B: int, nz: int, device):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--stop-after", type=int, default=7,
-                    help="last phase to run (1-7)")
+    ap.add_argument("--stop-after", type=int, default=LAST_PHASE,
+                    help=f"last phase to run (1-{LAST_PHASE})")
     ap.add_argument("--profile", action="store_true",
                     help="after the timings, trace 3 fleet steps with torch.profiler")
     args = ap.parse_args(argv)
@@ -146,7 +155,7 @@ def run_phases(dev, card: str, kind: str, args) -> int:
     import torch
 
     import lbmpc_tpu_torch as lt
-    from lbmpc_tpu_torch.ops import _cuda, gn_kernel, qp_kernel
+    from lbmpc_tpu_torch.ops import _cuda, chol_kernel, gn_kernel, qp_kernel
     from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
     from lbmpc_tpu_torch.ops.qp_kernel import QPSolverH, mehrotra_h, mehrotra_h_plain
     from lbmpc_tpu_torch.controllers.sqp_fused import (make_lbmpc_solver_fused,
@@ -164,6 +173,10 @@ def run_phases(dev, card: str, kind: str, args) -> int:
                                   source="lbmpc_tpu_torch/csrc/mehrotra_h.cu",
                                   replaces="lbmpc_tpu/ops/pallas_ipm.py:567",
                                   library_ms=None)}
+    for k, line in zip(chol_kernel.KERNELS, (175, 250, 320)):
+        kernels[k.name] = dict(name=k.name, route="cuda",
+                               source="lbmpc_tpu_torch/csrc/chol.cu",
+                               replaces=f"lbmpc_tpu/ops/pallas_chol.py:{line}")
 
     # ---- phase 1: card, versions, build -------------------------------------
     log("phase 1: card, versions, kernel build")
@@ -173,14 +186,16 @@ def run_phases(dev, card: str, kind: str, args) -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32} "
         f"precision={torch.get_float32_matmul_precision()}")
     t0 = time.time()
-    logs = _cuda.build_all([gn_kernel.KERNEL, qp_kernel.KERNEL], verbose=True)
+    logs = _cuda.build_all([gn_kernel.KERNEL, qp_kernel.KERNEL, *chol_kernel.KERNELS],
+                           verbose=True)
     for name, text in logs.items():
         for line in text.splitlines():
             if any(k in line for k in ("registers", "spill", "smem", "error")):
                 log(f"  {name}: {line.strip()}")
-    log(f"  built both kernels in parallel in {time.time() - t0:.1f} s")
-    require(gn_kernel.KERNEL.library_path().exists()
-            and qp_kernel.KERNEL.library_path().exists(), "kernels built")
+    log(f"  built {len(logs)} kernel sources in parallel in {time.time() - t0:.1f} s")
+    require(all(k.library_path().exists()
+                for k in (gn_kernel.KERNEL, qp_kernel.KERNEL, *chol_kernel.KERNELS)),
+            "kernels built")
     if args.stop_after < 2:
         return finish(card, kind, kernels, args)
 
@@ -257,7 +272,8 @@ def run_phases(dev, card: str, kind: str, args) -> int:
     log("phase 4: fused SQP solve at the bench configuration, kernel vs plain route")
     kw = dict(family="fmincon", delta=cfg.plant.ts, bandwidth=cfg.oracle.bandwidth,
               ridge=cfg.oracle.ridge, dx_ref=np.asarray(cfg.dx_ref), sqp_iters=2,
-              ipm_iters=IPM_SCHED, alphas=LADDER, qp_warm=True, device=dev)
+              ipm_iters=IPM_SCHED, alphas=LADDER, qp_warm=True, qp_kernel="pallas_full",
+              device=dev)
     hyb_kw = dict(repair_frac=REPAIR_K / BATCH, repair_sqp_iters=1, repair_ipm_iters=8,
                   repair_warm="fused", repair_backend="fused")
     z0 = torch.zeros(BATCH, nz, dtype=torch.float32, device=dev)
@@ -285,10 +301,11 @@ def run_phases(dev, card: str, kind: str, args) -> int:
         return finish(card, kind, kernels, args)
 
     # ---- phase 5: the main path — warm-chain hybrid fleet ---------------------
-    log(f"phase 5: warm-chain hybrid fleet, cohort {COHORT}, {STEPS} steps (main path)")
+    log(f"phase 5: warm-chain hybrid fleet on the kernel route, cohort {COHORT}, "
+        f"{STEPS} steps (the kernel route's main path)")
     fcfg = dataclasses.replace(cfg, iterations=STEPS)
     fleet_kw = dict(backend="hybrid", ipm_iters=IPM_SCHED, sqp_iters=2, qp_warm=True,
-                    warm_chain=True, device=dev)
+                    warm_chain=True, qp_kernel="pallas_full", device=dev)
     _, run_k = build_fleet_episode(fcfg, **fleet_kw)
     _, run_p = build_fleet_episode(fcfg, plain=True, **fleet_kw)
     dx_init = (np.array([-0.35, -0.4, 0.0, 0.0])
@@ -383,7 +400,313 @@ def run_phases(dev, card: str, kind: str, args) -> int:
     if args.profile:
         profile_fleet(dataclasses.replace(fcfg, iterations=3), fleet_kw, dx_init, tag)
     log(f"  wall time so far {time.time() - t_start:.1f} s")
+    if args.stop_after < 7:
+        return finish(card, kind, kernels, args)
+    xla_phases(dev, tag, args, kernels, cfg, sc, dx, win, dx_init)
+    log(f"  wall time so far {time.time() - t_start:.1f} s")
     return finish(card, kind, kernels, args)
+
+
+def chol_work(name: str, B: int, n: int):
+    """(bytes, float32 operations) of one K5 call: M or L read once, b read
+    once, x (and L) written once; the factorization's n^3/3 and the two
+    triangular solves' 2 n^2 operations. M and L count n(n+1)/2 floats a
+    lane: the factorization reads only M's lower triangle, and nothing reads
+    L above its diagonal."""
+    mat, vec = B * n * (n + 1) // 2, B * n
+    by = {"chol_factor_solve": 2 * mat + 2 * vec, "chol_solve": mat + 2 * vec,
+          "chol_resolve": mat + 2 * vec}[name] * 4
+    fl = B * (2 * n * n + (n ** 3 // 3 if name != "chol_resolve" else 0))
+    return by, fl
+
+
+class CholRecorder:
+    """Keeps the first and the last (M, b) that the IPM hands K5a during one
+    solve: the equilibrated KKT matrices of the first and the last IPM
+    iteration, as the solve produced them."""
+
+    def __enter__(self):
+        from lbmpc_tpu_torch.ops import ipm_fused
+
+        self.first = self.last = None
+        self._orig = ipm_fused.chol_factor_solve
+
+        def record(M, b, plain=False):
+            pair = (M.clone(), b.clone())
+            if self.first is None:
+                self.first = pair
+            self.last = pair
+            return self._orig(M, b, plain)
+
+        ipm_fused.chol_factor_solve = record
+        return self
+
+    def __exit__(self, *exc):
+        from lbmpc_tpu_torch.ops import ipm_fused
+
+        ipm_fused.chol_factor_solve = self._orig
+
+
+def mismatch(a, b) -> float:
+    """max |a - b| where the two differ; equal entries (inf and NaN in the
+    same place included) count 0, so a one-sided NaN is an infinite error."""
+    import torch
+
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    d = torch.where(same, torch.zeros_like(a), (a - b).abs())
+    d = torch.where(torch.isnan(d), torch.full_like(d, float("inf")), d)
+    return d.max().item()
+
+
+def finite_max(a) -> float:
+    import torch
+
+    return a[torch.isfinite(a)].abs().max().item()
+
+
+def chol_counts() -> dict:
+    from lbmpc_tpu_torch.ops import chol_kernel
+
+    return {k.name: k.launches for k in chol_kernel.KERNELS}
+
+
+def zero_counts() -> None:
+    from lbmpc_tpu_torch.ops import chol_kernel, gn_kernel, qp_kernel
+
+    for k in (gn_kernel.KERNEL, qp_kernel.KERNEL, *chol_kernel.KERNELS):
+        k.launches = 0
+
+
+def solve_gates(name: str, zk, ck, zp, cp) -> float:
+    """The solve-level gates of a kernel route against its plain route."""
+    import torch
+
+    dz = (zk - zp).abs()
+    fk, fp = ck.float().mean().item(), cp.float().mean().item()
+    log(f"  {name}: |dz| median={dz.median().item():.3e} max={dz.max().item():.3e} "
+        f"(bit-equal: {bool(torch.equal(zk, zp))}) conv kernel={fk:.6f} plain={fp:.6f}")
+    require(bool(torch.isfinite(zk).all()), f"{name} solve finite")
+    require(dz.median().item() < 1e-6 and dz.max().item() < 5e-2,
+            f"{name} |dz| vs the plain route: median < 1e-6, max < 5e-2")
+    require(abs(fk - fp) <= 0.005 and fk >= 0.99,
+            f"{name} conv within 0.5 pp of the plain route and >= 0.99")
+    return dz.max().item()
+
+
+def xla_phases(dev, tag: str, args, kernels: dict, cfg, sc, dx, win, dx_init) -> None:
+    """Phases 7-11: the xla route on the K5 kernels."""
+    import os
+
+    import torch
+
+    import lbmpc_tpu_torch as lt
+    from lbmpc_tpu_torch.controllers.sqp_fused import make_lbmpc_solver_fused
+    from lbmpc_tpu_torch.ops import chol_kernel as ck
+    from lbmpc_tpu_torch.runtime.scenario import build_fleet_episode, build_scenario
+
+    f32 = torch.float32
+    kw = dict(family="fmincon", delta=cfg.plant.ts, bandwidth=cfg.oracle.bandwidth,
+              ridge=cfg.oracle.ridge, dx_ref=np.asarray(cfg.dx_ref), sqp_iters=2,
+              ipm_iters=XLA_SCHED, alphas=LADDER, device=dev)
+    bench = lambda **extra: make_lbmpc_solver_fused(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w,
+                                                    **kw, **extra)
+    dcfg = lt.make_preset("DMS_LBMPC_q100")
+    dcfg = dataclasses.replace(dcfg, solver=dataclasses.replace(dcfg.solver, dtype="float32"))
+    ds = build_scenario(dcfg)
+    dkw = dict(kw, family="casadi", delta=dcfg.plant.ts, bandwidth=dcfg.oracle.bandwidth,
+               ridge=dcfg.oracle.ridge, dx_ref=np.asarray(dcfg.dx_ref))
+    dms = lambda **extra: make_lbmpc_solver_fused(ds.qp, ds.A, ds.B, ds.ocp.Ks, ds.w,
+                                                  **dkw, **extra)
+    support = np.count_nonzero(ds.qp.G, axis=1)
+    log(f"DMS flagship: N={dcfg.ocp.N} q={dcfg.oracle.q} nz={ds.nz} G={ds.qp.G.shape} "
+        f"(rows with 1 / 2 / more columns: {(support == 1).sum()} / {(support == 2).sum()} "
+        f"/ {(support > 2).sum()}) batch={DMS_BATCH}")
+    rng = np.random.default_rng(3)
+    _, dwin, _ = bench_inputs(rng, DMS_BATCH, ds.nz, dev)
+    x0 = np.asarray(dcfg.x_init_abs) - np.asarray(dcfg.plant.x_wp)
+    ddx = torch.as_tensor(x0 + 0.01 * rng.standard_normal((DMS_BATCH, 4)), dtype=f32,
+                          device=dev)
+    dz0 = torch.zeros(DMS_BATCH, ds.nz, dtype=f32, device=dev)
+    z0 = torch.zeros(BATCH, sc.nz, dtype=f32, device=dev)
+
+    # ---- phase 7: K5 against its plain versions -------------------------------
+    log("phase 7: K5 chol kernels vs plain, M from real xla-route solves "
+        "(first and last IPM iteration, equilibrated)")
+    cdx, cwin, _ = bench_inputs(np.random.default_rng(4), COHORT, sc.nz, dev)
+    czero = torch.zeros(COHORT, sc.nz, dtype=f32, device=dev)
+    cases = {}
+    with CholRecorder() as rec:
+        bench()(cdx, cwin, czero)
+    cases[f"n={sc.nz} B={COHORT}"] = (rec.first, rec.last)
+    with CholRecorder() as rec:
+        dms()(ddx, dwin, dz0)
+    cases[f"n={ds.nz} B={DMS_BATCH}"] = (rec.first, rec.last)
+    torch.cuda.synchronize()
+    errs = {k.name: 0.0 for k in ck.KERNELS}
+    for shape, pairs in cases.items():
+        for it, (M, b) in zip(("first", "last"), pairs):
+            Lk, xk = ck.chol_factor_solve(M, b)
+            Lp, xp = ck.chol_factor_solve(M, b, plain=True)
+            xs = ck.chol_solve(M, b)
+            xr = ck.chol_resolve(Lp, b)
+            xrp = ck.chol_resolve(Lp, b, plain=True)
+            torch.cuda.synchronize()
+            xmax, lmax = finite_max(xp), finite_max(Lp)
+            e = {"chol_factor_solve": (mismatch(xk, xp), mismatch(Lk, Lp)),
+                 "chol_solve": (mismatch(xs, xp), 0.0),
+                 "chol_resolve": (mismatch(xr, xrp), 0.0)}
+            log(f"  {shape} {it} iteration: max|x|={xmax:.4g} max|L|={lmax:.4g} errors "
+                + " ".join(f"{k} x={v[0]:.3e}" for k, v in e.items())
+                + f" L={e['chol_factor_solve'][1]:.3e}; bit-equal: "
+                + str(bool(torch.equal(Lk, Lp) and torch.equal(xk, xp)
+                           and torch.equal(xs, xp) and torch.equal(xr, xrp))))
+            for k, (ex, eL) in e.items():
+                require(ex <= 1e-4 * xmax and eL <= 1e-5 * lmax,
+                        f"{k} at {shape}, {it} iteration: x within 1e-4 of max|x|, "
+                        "L within 1e-5 of max|L|")
+                errs[k] = max(errs[k], ex, eL)
+    for k, v in errs.items():
+        kernels[k]["max_abs_err"] = v
+    if args.stop_after < 8:
+        return
+
+    # ---- phase 8: the fmincon xla-route solve ----------------------------------
+    log(f"phase 8: fused SQP on the xla route, bench configuration, batch {BATCH}, "
+        f"ipm {XLA_SCHED}, kernel vs plain route")
+    sk, sp = bench(), bench(plain=True)
+    torch.cuda.synchronize()
+    zero_counts()
+    zk, ckv = sk(dx, win, z0)
+    torch.cuda.synchronize()
+    per = chol_counts()
+    zp, cpv = sp(dx, win, z0)
+    log(f"  launches per solve {per}")
+    solve_gates("fmincon xla solve", zk, ckv, zp, cpv)
+    require(per == {"chol_factor_solve": 24, "chol_solve": 0, "chol_resolve": 24},
+            "fmincon xla solve: K5a = K5c = 24 launches per solve, K5b = 0")
+    if args.stop_after < 9:
+        return
+
+    # ---- phase 9: the DMS flagship solve, L stored and refactored ------------
+    log(f"phase 9: DMS flagship fused SQP on the xla route, batch {DMS_BATCH}, "
+        f"ipm {XLA_SCHED}, kernel vs plain route; then LBMPC_CHOL_STORE=0")
+    dk, dp = dms(), dms(plain=True)
+    torch.cuda.synchronize()
+    zero_counts()
+    dzk, dck = dk(ddx, dwin, dz0)
+    torch.cuda.synchronize()
+    per = chol_counts()
+    dzp, dcp = dp(ddx, dwin, dz0)
+    log(f"  launches per solve {per}")
+    solve_gates("DMS xla solve", dzk, dck, dzp, dcp)
+    require(per == {"chol_factor_solve": 24, "chol_solve": 0, "chol_resolve": 24},
+            "DMS xla solve: K5a = K5c = 24 launches per solve, K5b = 0")
+    os.environ["LBMPC_CHOL_STORE"] = "0"
+    try:
+        dn = dms()
+    finally:
+        del os.environ["LBMPC_CHOL_STORE"]
+    torch.cuda.synchronize()
+    zero_counts()
+    dzn, dcn = dn(ddx, dwin, dz0)          # K5b's path
+    torch.cuda.synchronize()
+    per = chol_counts()
+    kernels["chol_solve"]["launches"] = per["chol_solve"]
+    dd = (dzn - dzk).abs().max().item()
+    log(f"  LBMPC_CHOL_STORE=0: launches {per}; max|z - z_store|={dd:.3e} "
+        f"(bit-equal: {bool(torch.equal(dzn, dzk))}) conv={dcn.float().mean().item():.6f}")
+    require(per == {"chol_factor_solve": 0, "chol_solve": 48, "chol_resolve": 0},
+            "LBMPC_CHOL_STORE=0: K5b = 48 launches per solve, K5a = K5c = 0")
+    require(dd <= 1e-6 * (1.0 + dzk.abs().max().item()),
+            "LBMPC_CHOL_STORE=0: z equals the store route within float32 roundoff")
+    if args.stop_after < 10:
+        return
+
+    # ---- phase 10: the default fused fleet (this slice's main path) ----------
+    log(f"phase 10: default fused fleet (xla route), cohort {COHORT}, {STEPS} steps "
+        "(the xla route's main path)")
+    fcfg = dataclasses.replace(cfg, iterations=STEPS)
+    xfleet_kw = dict(backend="fused", sqp_iters=2, ipm_iters=XLA_SCHED, device=dev)
+    _, run_x = build_fleet_episode(fcfg, **xfleet_kw)
+    _, run_xp = build_fleet_episode(fcfg, plain=True, **xfleet_kw)
+    require(run_x.solver.qp_kernel == "xla", "the default fleet takes the xla route")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.time()
+    res = run_x(dx_init)
+    torch.cuda.synchronize()
+    fleet_s = time.time() - t0
+    per = chol_counts()
+    for k in ("chol_factor_solve", "chol_resolve"):
+        kernels[k]["launches"] = per[k]
+    sysH = res.sys_history
+    conv = res.solver_converged.float().mean().item()
+    log(f"  {fleet_s * 1e3 / STEPS:.3f} ms/step (host clock, first run, incl. warm-up) "
+        f"conv={conv:.6f} launches {per} {tag}")
+    require(tuple(sysH.shape) == (COHORT, STEPS + 1, 5)
+            and bool(torch.isfinite(sysH).all()), "fleet history finite, (B, T+1, 5)")
+    require(per == {"chol_factor_solve": STEPS * 24, "chol_solve": 0,
+                    "chol_resolve": STEPS * 24},
+            f"K5a and K5c launched {STEPS * 24} times each on the main path, K5b 0")
+    require(conv >= 0.99, "default fleet conv >= 0.99")
+    res_p = run_xp(dx_init)                  # same cohort: same matmul shapes
+    d = (sysH - res_p.sys_history).abs()
+    d256 = d[:256]
+    log(f"  vs plain route: first 256 lanes |d sys_history| median="
+        f"{d256.median().item():.3e} max={d256.max().item():.3e}; all lanes max="
+        f"{d.max().item():.3e} (bit-equal: {bool(torch.equal(sysH, res_p.sys_history))}); "
+        f"plain conv={res_p.solver_converged.float().mean().item():.6f}")
+    require(d.median().item() < 1e-6 and d.max().item() < 5e-2,
+            "default fleet sys_history vs the plain route: median < 1e-6, max < 5e-2")
+    if args.stop_after < 11:
+        return
+
+    # ---- phase 11: timings (CUDA events, after warm-up) -----------------------
+    log("phase 11: xla-route timings")
+    t = {}
+    for shape, pairs in cases.items():
+        M, b = pairs[1]
+        B, n = b.shape
+        L = ck.chol_factor_solve(M, b)[0]
+        calls = {"chol_factor_solve": (lambda: ck.chol_factor_solve(M, b),
+                                       lambda: ck.chol_factor_solve(M, b, plain=True)),
+                 "chol_solve": (lambda: ck.chol_solve(M, b),
+                                lambda: ck.chol_solve(M, b, plain=True)),
+                 "chol_resolve": (lambda: ck.chol_resolve(L, b),
+                                  lambda: ck.chol_resolve(L, b, plain=True))}
+        Lx = torch.linalg.cholesky_ex(M)[0]
+        lib_fs = lambda: torch.cholesky_solve(b[..., None], torch.linalg.cholesky_ex(M)[0])
+        libs = {"chol_factor_solve": lib_fs, "chol_solve": lib_fs,
+                "chol_resolve": lambda: torch.cholesky_solve(b[..., None], Lx)}
+        for name, (fk, fp) in calls.items():
+            ms, pms, lms = cuda_ms(fk), cuda_ms(fp, reps=3), cuda_ms(libs[name], reps=5)
+            bd, bd_by = bound_ms(*chol_work(name, B, n))
+            t[(name, shape)] = (ms, pms, lms, bd, bd_by)
+            log(f"  time {name} {shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                f"library {lms:.4f} ms, bound {bd:.4f} ms ({bd_by}) {tag}")
+    # each row carries the shape of its kernel's path: K5a and K5c the
+    # fleet cohort, K5b the DMS flagship (its LBMPC_CHOL_STORE=0 path)
+    for name, shape in (("chol_factor_solve", f"n={sc.nz} B={COHORT}"),
+                        ("chol_solve", f"n={ds.nz} B={DMS_BATCH}"),
+                        ("chol_resolve", f"n={sc.nz} B={COHORT}")):
+        ms, pms, lms, bd, bd_by = t[(name, shape)]
+        kernels[name].update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bd,
+                             bound_by=bd_by)
+    ts = {"xla_solve": cuda_ms(lambda: sk(dx, win, z0), reps=5),
+          "xla_solve_plain": cuda_ms(lambda: sp(dx, win, z0), reps=2, warmup=1),
+          "dms_solve": cuda_ms(lambda: dk(ddx, dwin, dz0), reps=3, warmup=1),
+          "dms_solve_nostore": cuda_ms(lambda: dn(ddx, dwin, dz0), reps=3, warmup=1),
+          "dms_solve_plain": cuda_ms(lambda: dp(ddx, dwin, dz0), reps=2, warmup=1),
+          "xla_merit_rollout": cuda_ms(lambda: sk.cost(z0, dx, win), reps=10),
+          "xla_gn_plain": cuda_ms(lambda: sk.gn.plain(z0, dx, win), reps=5)}
+    t0 = time.time()
+    run_x(dx_init)
+    torch.cuda.synchronize()
+    ts["xla_fleet_step"] = (time.time() - t0) * 1e3 / STEPS
+    for k, v in ts.items():
+        log(f"  time {k} = {v:.4f} ms {tag}")
+    if args.profile:
+        profile_fleet(dataclasses.replace(fcfg, iterations=3), xfleet_kw, dx_init, tag)
 
 
 def profile_fleet(cfg, fleet_kw: dict, dx_init, tag: str) -> None:
@@ -424,8 +747,8 @@ def finish(card: str, kind: str, kernels: dict, args) -> int:
                     if m == "jax" or m.startswith("jax.") or m == "lbmpc_tpu"
                     or m.startswith("lbmpc_tpu."))
     require(not leaked, f"no jax / lbmpc_tpu module imported ({leaked[:3]})")
-    if args.stop_after >= 7:
-        log("phase 7: kernels")
+    if args.stop_after >= LAST_PHASE:
+        log(f"phase {LAST_PHASE}: kernels")
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
         rows = [{k: v.get(k) for k in keys} for v in kernels.values()]

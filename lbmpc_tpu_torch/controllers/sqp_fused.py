@@ -1,14 +1,20 @@
-"""Batch-level LBMPC SQP on the two hand-written kernels (the kernel route).
+"""Batch-level LBMPC SQP: the Gauss-Newton loop at batch level.
 
-Port of lbmpc_tpu/controllers/sqp_fused.py, `qp_kernel="pallas_full"`: each
-Gauss-Newton (GN) iteration is two launches — K1 (ops/gn_kernel.GNPhase:
-residual, H and g for every lane) and K2 (ops/qp_kernel: the Mehrotra QP
-with a Hessian per lane, fed K1's H as it is) — followed by the batched
-l1-merit Armijo ladder in plain torch. float32 throughout, as the
-reference casts it.
+Port of lbmpc_tpu/controllers/sqp_fused.py on two routes, each Gauss-Newton
+(GN) iteration followed by the batched l1-merit Armijo ladder in plain
+torch, float32 throughout as the reference casts it:
+- `qp_kernel="xla"` (the default, as in the reference): the residual and
+  its Jacobian J in batched torch (K1's plain version, controllers/lbmpc),
+  H = 2J'J + 1e-6 I and g = 2J'e, then one fused QP (ops/ipm_fused) whose
+  KKT solves run on the K5 Cholesky kernels. The fmincon and casadi
+  families, any nz up to 128;
+- `qp_kernel="pallas_full"` (the kernel route): two launches per GN
+  iteration — K1 (ops/gn_kernel.GNPhase: residual, H and g for every lane)
+  and K2 (ops/qp_kernel: the Mehrotra QP with a Hessian per lane, fed K1's
+  H as it is). The m=1 fmincon family at nz <= 32 only.
 
-Other `qp_kernel` values (the XLA-composed ops/ipm_fused route, "pallas" and
-"pallas_mono") and the vmapped repair are not ported yet and raise.
+"pallas" and "pallas_mono", jac_mode="jacfwd", and the vmapped repair are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -21,39 +27,54 @@ from lbmpc_tpu_torch.controllers.lbmpc import LBMPCWeights
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.oracle import DataWindow
 from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
+from lbmpc_tpu_torch.ops.ipm_fused import build_fused_qp_solver
 from lbmpc_tpu_torch.ops.qp_kernel import QPSolverH
 
 _ALPHAS = (1.0, 0.5, 0.25, 0.125, 0.0625)
 _F32 = torch.float32
 
 
-def _check_route(qp_kernel: str, family: str, qp: CondensedQP) -> None:
+def _check_route(qp_kernel: str, family: str, qp: CondensedQP,
+                 jac_mode: str) -> None:
+    if jac_mode != "manual":
+        raise ValueError(f"jac_mode={jac_mode!r} is not ported yet; the port "
+                         "has the hand-derived Jacobian (jac_mode='manual')")
+    if family not in ("fmincon", "casadi"):
+        raise ValueError(f"family={family!r}: the fused SQP covers the "
+                         "fmincon and casadi families")
+    if qp_kernel == "xla":
+        return
     if qp_kernel != "pallas_full":
         raise ValueError(f"qp_kernel={qp_kernel!r} is not ported yet; the "
-                         "port has the kernel route qp_kernel='pallas_full'")
-    if family != "fmincon" or qp.m != 1:
-        raise ValueError("the kernel route covers the m=1 fmincon family; "
-                         f"family={family!r} is not ported yet")
+                         "port has qp_kernel='xla' and 'pallas_full'")
+    if family != "fmincon" or qp.m != 1 or qp.nz > 32:
+        raise ValueError(
+            "qp_kernel='pallas_full' is ported for the m=1 fmincon family at "
+            f"nz <= 32 (K1, K2); family={family!r} at nz={qp.nz} is not "
+            "ported yet: use qp_kernel='xla'")
 
 
 class FusedSolver:
     """Returned by make_lbmpc_solver_fused. `solver(dx0, windows, z_ws)` ->
     (z (B, nz), conv (B,)) casts to float32 on the solver's device;
-    `raw` takes float32 tensors as they are; with qp_warm, `raw_qpwarm`
-    (dx0, windows, z_ws, qp_state) -> (z, conv, qp_state) threads the QP
-    kernel's interior (s, z) across solves, seeded by `init_qp_state`."""
+    `raw` takes float32 tensors as they are. On the kernel route with
+    qp_warm, `raw_qpwarm` (dx0, windows, z_ws, qp_state) -> (z, conv,
+    qp_state) threads the QP kernel's interior (s, z) across solves, seeded
+    by `init_qp_state`; the xla route ignores qp_warm, as the reference
+    does."""
 
     def __init__(self, qp: CondensedQP, A, B, Ks, w: LBMPCWeights,
                  family: str = "fmincon", delta: float = 0.01,
                  bandwidth: float = 0.5, ridge: float = 0.001, dx_ref=None,
                  sqp_iters: int = 3, ipm_iters=20, tile: int | None = None,
-                 rho: float = 1e4, d_cap: float = 1e6,
-                 qp_kernel: str = "pallas_full", alphas: tuple = _ALPHAS,
-                 qp_warm: bool = False, warm_eps: float = 1e-5, device=None,
-                 plain: bool = False):
-        _check_route(qp_kernel, family, qp)
+                 rho: float = 1e4, jac_mode: str = "manual",
+                 d_cap: float = 1e6, qp_kernel: str = "xla",
+                 alphas: tuple = _ALPHAS, qp_warm: bool = False,
+                 warm_eps: float = 1e-5, device=None, plain: bool = False):
+        _check_route(qp_kernel, family, qp, jac_mode)
         del tile  # the reference's TPU lane tile; nothing to tile here
         self.device = dev = resolve_device(device)
+        self.qp_kernel = qp_kernel
         self.sqp_iters = sqp_iters
         self.rho = rho
         self.alphas = alphas
@@ -69,10 +90,16 @@ class FusedSolver:
         sched = (tuple(ipm_iters) if isinstance(ipm_iters, (tuple, list))
                  else (int(ipm_iters),) * sqp_iters)
         self.ipm_sched = sched + (sched[-1],) * (sqp_iters - len(sched))
+        self._qps = {}
+        if qp_kernel == "xla":
+            self._fused = {it: build_fused_qp_solver(None, qp.G, iters=it,
+                                                     d_cap=d_cap, device=dev,
+                                                     plain=plain)
+                           for it in set(self.ipm_sched)}
+            return
         # per-position variants: with qp_warm, QP i>0 consumes the previous
         # QP's interior state and QP i<last produces one; the receding-
         # horizon chain (loop mode) makes every position warm-in and warm-out
-        self._qps = {}
         for i in range(sqp_iters):
             keys = [(self.ipm_sched[i],) + self._wio(i)]
             if qp_warm:
@@ -102,8 +129,9 @@ class FusedSolver:
         return self._solve(dx0, windows, z, None)[:2]
 
     def raw_qpwarm(self, dx0, windows: DataWindow, z, qp_state):
-        if not self.qp_warm:
-            raise ValueError("raw_qpwarm needs qp_warm=True")
+        if not (self.qp_warm and self.qp_kernel == "pallas_full"):
+            raise ValueError("raw_qpwarm needs qp_warm=True on the kernel "
+                             "route (qp_kernel='pallas_full')")
         return self._solve(dx0, windows, z, qp_state)
 
     def init_qp_state(self, dx0, z_ws):
@@ -120,12 +148,19 @@ class FusedSolver:
         for it in range(self.sqp_iters):
             sched = (tuple(self.alphas[min(it, len(self.alphas) - 1)])
                      if per_gn else tuple(self.alphas))
-            e, H, gb = self._gn(z, dx0, windows)
-            win, wout = (True, True) if loop else self._wio(it)
-            qp = self._qps[(self.ipm_sched[it], win, wout)]
-            out = qp.raw_packed(H, gb, h - z @ G.T, warm_state)
-            d, mu_last = out[0], out[1]
-            warm_state = out[2] if wout else None
+            if self.qp_kernel == "xla":
+                e, H, gb = self.gn.plain(z, dx0, windows)
+                sub = self._fused[self.ipm_sched[it]].raw_with_H(
+                    H, gb, h - z @ G.T)
+                del H
+                d, mu_last = sub.x, sub.mu
+            else:
+                e, H, gb = self._gn(z, dx0, windows)
+                win, wout = (True, True) if loop else self._wio(it)
+                qp = self._qps[(self.ipm_sched[it], win, wout)]
+                out = qp.raw_packed(H, gb, h - z @ G.T, warm_state)
+                d, mu_last = out[0], out[1]
+                warm_state = out[2] if wout else None
             # merit at the current iterate reuses K1's residual
             v0 = torch.clamp(z @ G.T - h, min=0.0).sum(dim=1)
             m0 = (e * e).sum(dim=1) + self.rho * v0
@@ -170,11 +205,12 @@ class HybridSolver:
                  family: str = "fmincon", delta: float = 0.01,
                  bandwidth: float = 0.5, ridge: float = 0.001, dx_ref=None,
                  sqp_iters: int = 3, ipm_iters=20, tile: int | None = None,
-                 rho: float = 1e4, repair_frac: float = 1.0 / 16.0,
-                 repair_ipm_iters: int = 30, repair_sqp_iters: int | None = None,
-                 repair_warm: str = "ws", qp_kernel: str = "pallas_full",
-                 alphas: tuple = _ALPHAS, repair_backend: str = "vmapped",
-                 qp_warm: bool = False, device=None, plain: bool = False):
+                 rho: float = 1e4,
+                 repair_frac: float = 1.0 / 16.0, repair_ipm_iters: int = 30,
+                 repair_sqp_iters: int | None = None, repair_warm: str = "ws",
+                 qp_kernel: str = "xla", alphas: tuple = _ALPHAS,
+                 repair_backend: str = "vmapped", qp_warm: bool = False,
+                 device=None, plain: bool = False):
         if repair_backend != "fused" or repair_warm != "fused":
             raise ValueError(
                 f"repair_backend={repair_backend!r}, repair_warm={repair_warm!r}: "

@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels (nvcc + a plain C interface + ctypes).
 
-Each kernel source under lbmpc_tpu_torch/csrc/ exports `<name>_launch(...)`,
-which launches on the stream it is given and returns cudaGetLastError(), and
-`<name>_error_string(code)`. The shared library is compiled at first use into
-build/lbmpc_tpu_torch/ for sm_90a, keyed by a hash of the source and flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+Each kernel source `csrc/<source>.cu` exports one `<name>_launch(...)` per
+kernel in it, which launches on the stream it is given and returns
+cudaGetLastError(), and `<source>_error_string(code)`. The shared library is
+compiled at first use into build/lbmpc_tpu_torch/ for sm_90a, keyed by a hash
+of the source and flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is. Kernels that share a source share its library.
 """
 
 from __future__ import annotations
@@ -40,13 +41,14 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """One kernel library: its source, its build, its C entry and the count
-    of launches made through it (`launches`, a plain integer that the
-    wrapper bumps once per kernel launch and nowhere else)."""
+    """One kernel: its source's library, its build, its C entry
+    `<name>_launch` and the count of launches made through it (`launches`,
+    a plain integer that the wrapper bumps once per kernel launch and
+    nowhere else). `source` names the .cu file when it is not `<name>.cu`."""
 
-    def __init__(self, name: str, argtypes: list):
+    def __init__(self, name: str, argtypes: list, source: str | None = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = CSRC / f"{source or name}.cu"
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
@@ -55,7 +57,7 @@ class CudaKernel:
     def library_path(self) -> pathlib.Path:
         digest = hashlib.sha256(self.source.read_bytes()
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+        return BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
 
     def build_command(self, out: pathlib.Path, verbose: bool = False) -> list:
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
@@ -96,7 +98,7 @@ class CudaKernel:
             fn = getattr(lib, f"{self.name}_launch")
             fn.argtypes = self.argtypes
             fn.restype = I
-            err = getattr(lib, f"{self.name}_error_string")
+            err = getattr(lib, f"{self.source.stem}_error_string")
             err.argtypes = [I]
             err.restype = ctypes.c_char_p
             self._fn, self._err = fn, err
@@ -116,9 +118,12 @@ class CudaKernel:
 
 def build_all(kernels, verbose: bool = False) -> dict:
     """Build several kernels at once (one nvcc per source, all started
-    together); returns {name: compiler output}."""
-    procs = [(k, k.start_build(verbose)) for k in kernels]
-    return {k.name: k.finish_build(p) for k, p in procs}
+    together); returns {source name: compiler output}."""
+    procs = {}
+    for k in kernels:
+        if k.source not in procs:
+            procs[k.source] = (k, k.start_build(verbose))
+    return {k.source.stem: k.finish_build(p) for k, p in procs.values()}
 
 
 def ptr(t: torch.Tensor) -> P:

@@ -1,0 +1,147 @@
+"""K5 — batched Cholesky factor + solve for the IPM's KKT normal matrices
+(csrc/chol.cu): K5a factors and solves and stores L, K5b factors and solves
+without storing L, K5c re-solves with a stored L.
+
+Port of lbmpc_tpu/ops/pallas_chol.py (chol_factor_solve, chol_solve,
+chol_resolve) with LBMPC_CHOL_BLOCKED unset; the blocked variants (K6) are
+not ported. Each wrapper routes by device: a CUDA tensor always launches its
+kernel, a CPU tensor takes the plain version below, and `plain=True` asks
+for the plain version on any device (the comparisons on the card).
+
+L is (B, n, n) row-major: its lower triangle with the diagonal, zeros above.
+K5a writes it and K5c reads it as it is. The reference's column-major
+(n_p^2, B) pack and its identity padding to n_p = 8k exist for the TPU's
+lane tiles and have no counterpart. Neither has its scoped-VMEM model
+(_chol_vmem_need, _tile_cap, _vlim_raise): a lane's n^2 floats (40.8 KB at
+the DMS flagship's n=101) fit one block's shared memory on this card up to
+n = 128, so storing L always fits and only LBMPC_CHOL_STORE=0 turns it off.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from lbmpc_tpu_torch.ops._cuda import I, P, CudaKernel, check, ptr
+
+FACTOR_SOLVE = CudaKernel("chol_factor_solve", [P] * 4 + [I, I, P], source="chol")
+SOLVE = CudaKernel("chol_solve", [P] * 3 + [I, I, P], source="chol")
+RESOLVE = CudaKernel("chol_resolve", [P] * 3 + [I, I, P], source="chol")
+KERNELS = (FACTOR_SOLVE, SOLVE, RESOLVE)
+N_MAX = 128          # csrc/chol.cu kNMax
+PIVOT_FLOOR = 1e-30  # sqrt(max(acc_jj, 1e-30)), pallas_chol.py:417
+
+
+def factor_store_feasible() -> bool:
+    """Whether the IPM stores L (K5a + K5c) or refactors per solve (K5b).
+    On this card storing L always fits up to n = 128 (module docstring), so
+    only LBMPC_CHOL_STORE=0 forces the refactor route, as in the
+    reference."""
+    return os.environ.get("LBMPC_CHOL_STORE") != "0"
+
+
+def cholesky_floor(M: torch.Tensor) -> torch.Tensor:
+    """Batched Cholesky with the pivot floor sqrt(max(., 1e-30)); reads M's
+    lower triangle, returns L with zeros above the diagonal.
+
+    The reference's column recurrence (_chol_cols, pallas_chol.py:410-419)
+    gives entry (i, j) the terms L[i, k] L[j, k] for k = 0..j-1 in that
+    order. This runs it right-looking, as the kernel does: once column j is
+    final, the trailing block subtracts its outer product. Each product and
+    each difference is rounded on its own, as the kernel's __fmul_rn /
+    __fsub_rn are, so kernel and plain version agree bit for bit."""
+    n = M.shape[-1]
+    A = M.clone()
+    for j in range(n):
+        djj = torch.sqrt(torch.clamp(A[:, j, j], min=PIVOT_FLOOR))
+        col = A[:, j:, j] / djj[:, None]
+        A[:, j:, j] = col
+        c = col[:, 1:]
+        A[:, j + 1:, j + 1:] -= c[:, :, None] * c[:, None, :]
+    return torch.tril(A)
+
+
+def _tri_solves(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """L L' x = b by two column sweeps (the kernel's): forward on L
+    (_tri_lower, pallas_chol.py:422-432), then back on L' reading row j of
+    L. Only the lower triangle of L is read."""
+    n = L.shape[-1]
+    v = b.clone()
+    y = torch.empty_like(b)
+    for j in range(n):
+        y[:, j] = v[:, j] / L[:, j, j]
+        v[:, j + 1:] -= L[:, j + 1:, j] * y[:, j, None]
+    x = torch.empty_like(b)
+    for j in range(n - 1, -1, -1):
+        x[:, j] = y[:, j] / L[:, j, j]
+        y[:, :j] -= L[:, j, :j] * x[:, j, None]
+    return x
+
+
+def chol_factor_solve_plain(M, b):
+    """K5a's plain version: (L (B, n, n), x (B, n))."""
+    L = cholesky_floor(M)
+    return L, _tri_solves(L, b)
+
+
+def chol_solve_plain(M, b):
+    """K5b's plain version: x (B, n)."""
+    return _tri_solves(cholesky_floor(M), b)
+
+
+def chol_resolve_plain(L, b):
+    """K5c's plain version: x (B, n) from a stored L."""
+    return _tri_solves(L, b)
+
+
+def _device_of(A: torch.Tensor, plain: bool) -> torch.device | None:
+    """None for the plain version, else the CUDA device to launch on."""
+    if plain or A.device.type == "cpu":
+        return None
+    if A.device.type != "cuda":
+        raise ValueError(f"the chol kernels run on cuda or cpu, not {A.device}")
+    return A.device
+
+
+def _checked(A, b):
+    Bsz, n = b.shape
+    if n > N_MAX:
+        raise ValueError(f"the chol kernels take n <= {N_MAX} (got n={n})")
+    check("matrix", A, (Bsz, n, n), A.device)
+    check("rhs", b, (Bsz, n), A.device)
+    return Bsz, n
+
+
+def chol_factor_solve(M, b, plain: bool = False):
+    """Factor SPD M (B, n, n) and solve M x = b (B, n): (L, x)."""
+    dev = _device_of(M, plain)
+    if dev is None:
+        return chol_factor_solve_plain(M, b)
+    Bsz, n = _checked(M, b)
+    L = torch.empty_like(M)
+    x = torch.empty_like(b)
+    FACTOR_SOLVE.launch(dev, ptr(M), ptr(b), ptr(L), ptr(x), I(Bsz), I(n))
+    return L, x
+
+
+def chol_solve(M, b, plain: bool = False):
+    """Factor SPD M (B, n, n) and solve M x = b without storing L: x."""
+    dev = _device_of(M, plain)
+    if dev is None:
+        return chol_solve_plain(M, b)
+    Bsz, n = _checked(M, b)
+    x = torch.empty_like(b)
+    SOLVE.launch(dev, ptr(M), ptr(b), ptr(x), I(Bsz), I(n))
+    return x
+
+
+def chol_resolve(L, b, plain: bool = False):
+    """Solve M x = b with the factor L from chol_factor_solve: x."""
+    dev = _device_of(L, plain)
+    if dev is None:
+        return chol_resolve_plain(L, b)
+    Bsz, n = _checked(L, b)
+    x = torch.empty_like(b)
+    RESOLVE.launch(dev, ptr(L), ptr(b), ptr(x), I(Bsz), I(n))
+    return x

@@ -1,10 +1,12 @@
 """Scenario assembly: preset -> host matrices -> fleet episode on the device.
 
-Port of lbmpc_tpu/runtime/scenario.py for the fmincon-family LBMPC presets:
-`build_scenario` does the host setup (DLTI, matOCP synthesis, the
-constraint set, the condensed QP, the Gauss-Newton weights) and builds no
-solver; `build_fleet_episode` runs a cohort through the batch-level SQP on
-the two kernels (ref: examples/LBMPC_RunExample.m:10-107).
+Port of lbmpc_tpu/runtime/scenario.py: `build_scenario` does the host setup
+(DLTI, matOCP synthesis, the constraint set, the condensed QP, the
+Gauss-Newton weights) of an LBMPC or LMPC preset of the fmincon, casadi or
+casadi_k family and builds no solver; `build_fleet_episode` runs a
+fmincon-family cohort through the batch-level SQP (ref:
+examples/LBMPC_RunExample.m:10-107, DMS_LBMPC_casadi.m:13-160). The
+single-scenario episodes are not ported.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import numpy as np
 import torch
 
 from lbmpc_tpu_torch.config import ScenarioConfig, make_preset
-from lbmpc_tpu_torch.controllers.condensed import CondensedQP, build_fmincon_lmpc
+from lbmpc_tpu_torch.controllers.condensed import (CondensedQP, build_casadi_dms,
+                                                   build_casadi_dms_k,
+                                                   build_fmincon_lmpc)
 from lbmpc_tpu_torch.controllers.lbmpc import LBMPCWeights
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.models.mgcm import mg2_dlti, mg2_ode, mgcm_dlti, rk23_step
@@ -45,13 +49,12 @@ class Scenario:
 
 
 def build_scenario(name_or_cfg) -> Scenario:
-    """Host setup of an fmincon-family LBMPC preset (no solver is built)."""
+    """Host setup of an LBMPC or LMPC preset (no solver is built)."""
     cfg = (name_or_cfg if isinstance(name_or_cfg, ScenarioConfig)
            else make_preset(name_or_cfg))
-    if cfg.controller != "lbmpc" or cfg.family != "fmincon":
-        raise ValueError("the port's scenarios cover fmincon-family LBMPC; "
-                         f"controller={cfg.controller!r}, family={cfg.family!r} "
-                         "are not ported yet")
+    if cfg.controller not in ("lbmpc", "lmpc"):
+        raise ValueError("the port's scenarios cover LBMPC and LMPC presets; "
+                         f"controller={cfg.controller!r} is not ported yet")
     p = cfg.plant
     mg2 = p.model == "mg2"
     A, B, C, _ = (mg2_dlti if mg2 else mgcm_dlti)(p.ts)
@@ -72,11 +75,18 @@ def build_scenario(name_or_cfg) -> Scenario:
         cs = get_cons(
             **common, A=A, B=B, K=ocp.Ks, LAMBDA=ocp.LAMBDA, PSI=ocp.PSI,
             LAMBDA_0=ocp.LAMBDA_0, PSI_0=ocp.PSI_0)
-    qp = build_fmincon_lmpc(
-        A, B, ocp.Ks, ocp.Q, ocp.R, ocp.P, ocp.T, ocp.LAMBDA, ocp.PSI, cs,
-        cfg.ocp.N, dx_ref=np.asarray(cfg.dx_ref),
-        terminal_at=cfg.ocp.terminal_at,
-        tighten_first_step=cfg.ocp.tighten_first_step)
+    mats = (ocp.Q, ocp.R, ocp.P, ocp.T, ocp.LAMBDA, ocp.PSI, cs, cfg.ocp.N)
+    if cfg.family == "fmincon":
+        qp = build_fmincon_lmpc(
+            A, B, ocp.Ks, *mats, dx_ref=np.asarray(cfg.dx_ref),
+            terminal_at=cfg.ocp.terminal_at,
+            tighten_first_step=cfg.ocp.tighten_first_step)
+    elif cfg.family == "casadi_k":
+        qp = build_casadi_dms_k(A, B, ocp.Ks, *mats, delta=p.ts)
+    else:
+        qp = build_casadi_dms(A, B, *mats, delta=p.ts,
+                              terminal_at=cfg.ocp.terminal_at,
+                              tighten_first_step=cfg.ocp.tighten_first_step)
     w = LBMPCWeights.make(ocp.Q, ocp.R, ocp.P, ocp.T, ocp.LAMBDA, ocp.PSI)
     return Scenario(cfg=cfg, A=A, B=B, ocp=ocp, cs=cs, qp=qp, w=w)
 
@@ -85,40 +95,55 @@ def build_fleet_episode(name_or_cfg, ipm_iters=None,
                         sqp_iters: int | None = None,
                         backend: str = "fused",
                         repair_frac: float = 1.0 / 85.0,
-                        qp_kernel: str = "pallas_full",
+                        qp_kernel: str = "xla",
                         alphas=None,
                         qp_warm: bool = False,
                         warm_chain: bool = False,
+                        repair_backend: str | None = None,
                         device=None,
                         plain: bool = False):
-    """Batch-level LBMPC episode on the kernel route (float32).
+    """Batch-level fmincon-family LBMPC episode (float32).
 
     Returns (scenario, run) with run(dx_init (B, n)) -> ClosedLoopResult,
-    histories batch-first. backend="hybrid" adds the compacted per-step
-    repair through the same kernels (1 GN x 8 IPM, seeded at the fused
-    iterate); warm_chain threads the QP kernel's interior state across steps
-    (needs qp_warm). plain=True runs the kernels' plain versions on the same
-    device — the reference route for comparisons on the card.
+    histories batch-first. As in the reference, the route decides the rest:
+    qp_kernel="xla" (the default: ops/ipm_fused on the K5 kernels) keeps the
+    solver's Armijo ladder unless `alphas` is given and ignores qp_warm;
+    qp_kernel="pallas_full" (K1 + K2) takes the ladder ((1,), (1, .5, .25))
+    and qp_warm. backend="hybrid" adds the compacted per-step repair (1 GN x
+    8 IPM, seeded at the fused iterate) with repair_backend "fused" on the
+    kernel route and "vmapped" (not ported yet: it raises) otherwise, unless
+    `repair_backend` names one. warm_chain threads the QP kernel's interior
+    state across steps (needs qp_warm on the kernel route). plain=True runs
+    the kernels' plain versions on the same device — the reference route for
+    comparisons on the card.
     """
     from lbmpc_tpu_torch.controllers.sqp_fused import (make_lbmpc_solver_fused,
                                                        make_lbmpc_solver_hybrid)
 
-    sc = build_scenario(name_or_cfg)
-    cfg = sc.cfg
+    cfg = (name_or_cfg if isinstance(name_or_cfg, ScenarioConfig)
+           else make_preset(name_or_cfg))
+    if cfg.controller != "lbmpc" or cfg.family != "fmincon":
+        raise ValueError("fused fleet episodes support fmincon-family LBMPC only")
     if backend not in ("fused", "hybrid"):
         raise ValueError(f"backend={backend!r}")
-    if warm_chain and not qp_warm:
-        raise ValueError("warm_chain needs qp_warm=True")
+    if warm_chain and not (qp_warm and qp_kernel == "pallas_full"):
+        raise ValueError("warm_chain needs qp_warm=True and the kernel route "
+                         "(qp_kernel='pallas_full')")
+    sc = build_scenario(cfg)
     dev = resolve_device(device)
     p = cfg.plant
     plant_ode = mg2_ode if p.model == "mg2" else None
-    extra = dict(qp_kernel=qp_kernel, alphas=alphas or ((1.0,), (1.0, 0.5, 0.25)),
-                 qp_warm=qp_warm)
+    extra = dict(qp_kernel=qp_kernel)
+    if qp_kernel != "xla":
+        extra.update(alphas=alphas or ((1.0,), (1.0, 0.5, 0.25)), qp_warm=qp_warm)
+    elif alphas is not None:
+        extra.update(alphas=alphas)
     if backend == "hybrid":
         factory = make_lbmpc_solver_hybrid
         extra.update(repair_frac=repair_frac, repair_sqp_iters=1,
                      repair_ipm_iters=8, repair_warm="fused",
-                     repair_backend="fused")
+                     repair_backend=repair_backend or (
+                         "fused" if qp_kernel == "pallas_full" else "vmapped"))
     else:
         factory = make_lbmpc_solver_fused
     solver = factory(

@@ -1,6 +1,8 @@
-"""PyTorch port, the warm-chain hybrid fleet episode (kernel route, plain
-versions on the CPU) against the reference's float64 vmapped episode — the
-gate of tests/test_runtime.py:466-510 (trajectory diff < 1e-3, conv 1.0)."""
+"""PyTorch port, the fleet episode (plain versions on the CPU): the
+warm-chain hybrid on the kernel route and the xla-route hybrid against the
+reference's float64 vmapped episode — the gate of
+tests/test_runtime.py:466-510 (trajectory diff < 1e-3, conv 1.0) — and the
+default-argument fleet (the xla route) against the reference's."""
 
 import dataclasses
 
@@ -46,7 +48,7 @@ def reference():
 def test_fleet_episode_matches_reference(reference, warm_chain):
     sc, run = t_scenario.build_fleet_episode(
         _small(lt.make_preset), backend="hybrid", ipm_iters=(8, 2), qp_warm=True,
-        warm_chain=warm_chain, device="cpu")
+        warm_chain=warm_chain, qp_kernel="pallas_full", device="cpu")
     res = run(DX0)
     assert res.sys_history.shape == (8, 5, 5) and res.solver_converged.shape == (8, 4)
     assert float(res.solver_converged.float().mean()) == 1.0
@@ -63,7 +65,8 @@ def test_warm_chain_seeds_step_zero_cold():
     the step's solve from (x_wp + dx_init) - x_wp, as in the reference."""
     cfg = dataclasses.replace(_small(lt.make_preset), iterations=1)
     runs = [t_scenario.build_fleet_episode(cfg, backend="fused", ipm_iters=(8, 2),
-                                           qp_warm=True, warm_chain=c, device="cpu")[1]
+                                           qp_warm=True, warm_chain=c,
+                                           qp_kernel="pallas_full", device="cpu")[1]
             for c in (True, False)]
     a, b = (r(DX0) for r in runs)
     assert (a.sys_history - b.sys_history).abs().max() < 1e-5
@@ -83,11 +86,54 @@ def test_closed_loop_without_learning_keeps_the_window():
     np.testing.assert_allclose(res.sys_history[:, 1, :4].numpy(), DX0, rtol=0, atol=1e-6)
 
 
+def test_xla_route_hybrid_fleet_matches_reference(reference):
+    """The xla route with the per-step repair through the same machinery
+    (repair_backend="fused", asked for by name)."""
+    sc, run = t_scenario.build_fleet_episode(
+        _small(lt.make_preset), backend="hybrid", ipm_iters=(16, 8),
+        repair_backend="fused", device="cpu")
+    assert run.solver.fused.qp_kernel == "xla"
+    res = run(DX0)
+    assert float(res.solver_converged.float().mean()) == 1.0
+    diff = np.abs(res.sys_history.numpy() - np.asarray(reference.sys_history)).max()
+    assert diff < 1e-3, diff
+
+
+def test_default_fleet_matches_reference_default_fleet(monkeypatch):
+    """build_fleet_episode(cfg) with default arguments takes the reference's
+    route, ladder and repair: the xla route, the solver's five-step Armijo
+    ladder, no qp_warm. Reference side on its XLA Cholesky (no Pallas)."""
+    monkeypatch.setenv("LBMPC_CHOL", "xla")
+    from lbmpc_tpu.runtime.scenario import build_fleet_episode
+
+    _, ref_run = build_fleet_episode(_small(make_preset))
+    ref = ref_run(jnp.asarray(DX0, jnp.float32))
+    monkeypatch.delenv("LBMPC_CHOL")
+    _, run = t_scenario.build_fleet_episode(_small(lt.make_preset), device="cpu")
+    s = run.solver
+    assert (s.qp_kernel, s.alphas, s.qp_warm) == ("xla", (1.0, 0.5, 0.25, 0.125, 0.0625),
+                                                  False)
+    res = run(DX0)
+    np.testing.assert_array_equal(res.solver_converged.numpy(),
+                                  np.asarray(ref.solver_converged))
+    # two float32 implementations of one route: the one-solve class
+    # (median < 1e-6) carried through the plant, within the fleet gate
+    d = np.abs(res.sys_history.numpy() - np.asarray(ref.sys_history))
+    assert np.median(d) < 1e-6 and d.max() < 1e-3, (np.median(d), d.max())
+
+
 def test_fleet_rejects_what_is_not_ported():
+    """What stays unported raises: the hybrid fleet's default repair on the
+    xla route (vmapped), the warm chain without qp_warm or off the kernel
+    route, the casadi family's episode, and the NMPC presets' setup."""
     cfg = _small(lt.make_preset)
     with pytest.raises(ValueError, match="not ported"):
-        t_scenario.build_fleet_episode(cfg, qp_kernel="xla", device="cpu")
+        t_scenario.build_fleet_episode(cfg, backend="hybrid", device="cpu")
     with pytest.raises(ValueError, match="qp_warm"):
         t_scenario.build_fleet_episode(cfg, warm_chain=True, device="cpu")
+    with pytest.raises(ValueError, match="kernel route"):
+        t_scenario.build_fleet_episode(cfg, warm_chain=True, qp_warm=True, device="cpu")
+    with pytest.raises(ValueError, match="fmincon"):
+        t_scenario.build_fleet_episode(lt.make_preset("DMS_LBMPC_q100"), device="cpu")
     with pytest.raises(ValueError, match="not ported"):
-        t_scenario.build_scenario(lt.make_preset("DMS_LBMPC_q100"))
+        t_scenario.build_scenario(lt.make_preset("NMPC_N20"))

@@ -1,7 +1,8 @@
-"""PyTorch port on the card: K1 (gn_phase) and K2 (mehrotra_h) against their
-plain versions on the same CUDA tensors, and the kernel route of the fused
-solve. Marked `gpu`; without CUDA every test skips. On a machine with an
-NVIDIA GPU and nvcc (no JAX needed):
+"""PyTorch port on the card: K1 (gn_phase), K2 (mehrotra_h) and K5a/b/c
+(chol) against their plain versions on the same CUDA tensors, and both
+routes of the fused solve against their plain routes. Marked `gpu`; without
+CUDA every test skips. On a machine with an NVIDIA GPU and nvcc (no JAX
+needed):
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 """
@@ -15,7 +16,7 @@ import torch
 import lbmpc_tpu_torch as lt
 from lbmpc_tpu_torch.controllers.sqp_fused import make_lbmpc_solver_fused
 from lbmpc_tpu_torch.oracle import DataWindow
-from lbmpc_tpu_torch.ops import gn_kernel, qp_kernel
+from lbmpc_tpu_torch.ops import chol_kernel, gn_kernel, qp_kernel
 from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
 from lbmpc_tpu_torch.ops.qp_kernel import QPSolverH, mehrotra_h, mehrotra_h_plain
 from lbmpc_tpu_torch.runtime.scenario import build_scenario
@@ -100,7 +101,8 @@ def test_fused_solve_kernel_route_matches_plain(cuda, bench):
     sc, kw = bench
     args = (sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w)
     common = dict(family="fmincon", sqp_iters=2, ipm_iters=(8, 2),
-                  alphas=((1.0,), (1.0, 0.5, 0.25)), qp_warm=True, device=cuda, **kw)
+                  alphas=((1.0,), (1.0, 0.5, 0.25)), qp_warm=True,
+                  qp_kernel="pallas_full", device=cuda, **kw)
     sk = make_lbmpc_solver_fused(*args, **common)
     sp = make_lbmpc_solver_fused(*args, plain=True, **common)
     _, dx, win = _inputs(256, sc.nz, cuda, seed=2)
@@ -112,3 +114,47 @@ def test_fused_solve_kernel_route_matches_plain(cuda, bench):
     d = (zk - zp).abs()
     assert d.median().item() < 1e-6 and d.max().item() < 5e-2
     assert abs(ck.float().mean().item() - cp.float().mean().item()) <= 0.005
+
+
+@pytest.mark.parametrize("n, B", [(21, 300), (101, 40), (128, 3)])
+def test_chol_kernels_match_plain(cuda, n, B):
+    """K5a, K5b and K5c reproduce their plain versions bit for bit (the same
+    operations in the same order, each rounded on its own), and L keeps the
+    pinned layout: lower triangle, zeros above."""
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((B, n, n))
+    M = torch.tensor(A @ np.swapaxes(A, 1, 2) + n * np.eye(n), dtype=torch.float32,
+                     device=cuda)
+    b = torch.tensor(rng.standard_normal((B, n)), dtype=torch.float32, device=cuda)
+    n0 = [k.launches for k in chol_kernel.KERNELS]
+    L, x = chol_kernel.chol_factor_solve(M, b)
+    xs = chol_kernel.chol_solve(M, b)
+    xr = chol_kernel.chol_resolve(L, 2.0 * b)
+    assert [k.launches - c for k, c in zip(chol_kernel.KERNELS, n0)] == [1, 1, 1]
+    Lp, xp = chol_kernel.chol_factor_solve(M, b, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(L, Lp) and torch.equal(x, xp) and torch.equal(xs, xp)
+    assert torch.equal(xr, chol_kernel.chol_resolve(Lp, 2.0 * b, plain=True))
+    assert torch.equal(torch.triu(L, diagonal=1), torch.zeros_like(L))
+    with pytest.raises(ValueError, match="n <= 128"):
+        chol_kernel.chol_solve(torch.zeros(1, 129, 129, device=cuda),
+                               torch.zeros(1, 129, device=cuda))
+
+
+def test_fused_solve_xla_route_matches_plain(cuda, bench):
+    """The xla route (ops/ipm_fused on K5a + K5c) against the same route on
+    the plain versions: K5 is bit-exact, so z and conv are equal."""
+    sc, kw = bench
+    args = (sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w)
+    common = dict(family="fmincon", sqp_iters=2, ipm_iters=(16, 8),
+                  alphas=((1.0,), (1.0, 0.5, 0.25)), device=cuda, **kw)
+    sk = make_lbmpc_solver_fused(*args, **common)
+    sp = make_lbmpc_solver_fused(*args, plain=True, **common)
+    _, dx, win = _inputs(256, sc.nz, cuda, seed=3)
+    z0 = torch.zeros(256, sc.nz, device=cuda)
+    n0 = [k.launches for k in chol_kernel.KERNELS]
+    zk, ck = sk(dx, win, z0)
+    assert [k.launches - c for k, c in zip(chol_kernel.KERNELS, n0)] == [24, 0, 24]
+    zp, cp = sp(dx, win, z0)
+    assert torch.equal(zk, zp) and torch.equal(ck, cp)
+    assert ck.float().mean().item() >= 0.99

@@ -147,11 +147,18 @@ def test_port_imports_no_jax_and_no_reference_package():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'lbmpc_tpu' or m.startswith('lbmpc_tpu.')]\n"
         "print(len([m for m in sys.modules if m.startswith('lbmpc_tpu_torch')]), bad)\n"
+        "assert not bad, bad\n"
+        "from lbmpc_tpu_torch.runtime.scenario import build_scenario\n"
+        "assert build_scenario('DMS_LMPC_K').nz == 101\n"
+        "for m in ('ops.chol_kernel', 'ops.ipm_fused', 'runtime.scenario'):\n"
+        "    assert 'lbmpc_tpu_torch.' + m in sys.modules, m\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'lbmpc_tpu' or m.startswith('lbmpc_tpu.')]\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 15
+    assert int(out.stdout.split()[0]) >= 17
 
 
 def test_tf32_is_off():

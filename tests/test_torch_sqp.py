@@ -1,5 +1,6 @@
-"""PyTorch port, the fused SQP on the kernel route (plain versions on the
-CPU) against the reference's make_lbmpc_solver_fused(qp_kernel="xla") with
+"""PyTorch port, the fused SQP on both routes — xla (ops/ipm_fused on K5)
+and the kernel route pallas_full (K1 + K2) — with the plain versions on the
+CPU, against the reference's make_lbmpc_solver_fused(qp_kernel="xla") with
 its XLA Cholesky (no Pallas), the warm-started QP chain, and the hybrid
 compacted repair."""
 
@@ -69,6 +70,9 @@ def _port_inputs(data):
 
 
 def _port(ts, factory=t_sqp.make_lbmpc_solver_fused, **kw):
+    """The port's solver; the kernel route unless `qp_kernel` says otherwise
+    (the port's default is the reference's, "xla")."""
+    kw.setdefault("qp_kernel", "pallas_full")
     return factory(ts.qp, ts.A, ts.B, ts.ocp.Ks, ts.w, device="cpu", **kw)
 
 
@@ -88,6 +92,31 @@ def test_fused_sqp_matches_reference(setup, monkeypatch):
     assert np.median(d) < 1e-6
     assert d.max() < 5e-3
     assert bool(np.asarray(cx).all()) and bool(ct.all())
+
+
+@pytest.mark.parametrize("ipm_iters", [16, (16, 8)])
+def test_xla_route_fused_sqp_matches_reference(setup, monkeypatch, ipm_iters):
+    """The default route on both sides: the port's ops/ipm_fused (K5 plain
+    versions) vs the reference's with its XLA Cholesky, the per-GN ladder."""
+    monkeypatch.setenv("LBMPC_CHOL", "xla")
+    from lbmpc_tpu.controllers.sqp_fused import make_lbmpc_solver_fused
+
+    cfg, sc, qp, w, ts, data, kw = setup
+    ref = make_lbmpc_solver_fused(qp, sc.A, sc.B, sc.ocp.Ks, w, sqp_iters=2,
+                                  ipm_iters=ipm_iters, alphas=LADDER, tile=B, **kw)
+    zx, cx = ref(*_jax_inputs(data))
+    monkeypatch.delenv("LBMPC_CHOL")
+    port = t_sqp.make_lbmpc_solver_fused(ts.qp, ts.A, ts.B, ts.ocp.Ks, ts.w,
+                                         sqp_iters=2, ipm_iters=ipm_iters,
+                                         alphas=LADDER, device="cpu", **kw)
+    assert port.qp_kernel == "xla"
+    zt, ct = port(*_port_inputs(data))
+    assert zt.dtype == torch.float32 and zt.shape == (B, N + 1)
+    d = np.abs(np.asarray(zx) - zt.numpy())
+    assert np.median(d) < 1e-6
+    assert d.max() < 5e-3
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cx))
+    assert bool(ct.all())
 
 
 def test_qp_warm_chain_matches_cold_schedule(setup):
@@ -159,10 +188,35 @@ def test_hybrid_repair_matches_reference(setup, monkeypatch):
     assert np.median(d) < 1e-6 and d.max() < 5e-3
 
 
-def test_unported_routes_raise(setup):
+def test_xla_route_hybrid_matches_reference(setup, monkeypatch):
+    """The hybrid on the xla route with repair_backend="fused", both sides:
+    the same flagged lanes are repaired and the same lanes end converged."""
+    monkeypatch.setenv("LBMPC_CHOL", "xla")
+    from lbmpc_tpu.controllers.sqp_fused import make_lbmpc_solver_hybrid
+
     cfg, sc, qp, w, ts, data, kw = setup
-    with pytest.raises(ValueError, match="not ported"):
-        _port(ts, qp_kernel="xla", **kw)
+    hk = dict(sqp_iters=1, ipm_iters=1, repair_frac=5.0 / B, repair_sqp_iters=1,
+              repair_ipm_iters=16, repair_warm="fused", repair_backend="fused")
+    ref = make_lbmpc_solver_hybrid(qp, sc.A, sc.B, sc.ocp.Ks, w, tile=B, **hk, **kw)
+    zx, cx = ref(*_jax_inputs(data))
+    monkeypatch.delenv("LBMPC_CHOL")
+    zt, ct = _port(ts, t_sqp.make_lbmpc_solver_hybrid, qp_kernel="xla", **hk,
+                   **kw)(*_port_inputs(data))
+    assert bool(ct[:5].all()) and not bool(ct[5:].any())
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cx))
+    d = np.abs(np.asarray(zx) - zt.numpy())
+    assert np.median(d) < 1e-6 and d.max() < 5e-3
+
+
+def test_unported_routes_raise(setup, monkeypatch):
+    """What stays unported raises ValueError: the pallas and pallas_mono
+    routes, the vmapped repair and the ws-seeded repair, jac_mode="jacfwd",
+    the kernel route beyond the m=1 fmincon family, and the LBMPC_CHOL_BLOCKED
+    switch (K6) at n_p >= 32."""
+    cfg, sc, qp, w, ts, data, kw = setup
+    for route in ("pallas", "pallas_mono"):
+        with pytest.raises(ValueError, match="not ported"):
+            _port(ts, qp_kernel=route, **kw)
     with pytest.raises(ValueError, match="not ported"):
         _port(ts, t_sqp.make_lbmpc_solver_hybrid, repair_backend="vmapped",
               repair_warm="fused", **kw)
@@ -170,4 +224,18 @@ def test_unported_routes_raise(setup):
         _port(ts, t_sqp.make_lbmpc_solver_hybrid, repair_backend="fused",
               repair_warm="ws", **kw)
     with pytest.raises(ValueError, match="not ported"):
+        _port(ts, t_sqp.make_lbmpc_solver_hybrid, qp_kernel="xla", **kw)
+    with pytest.raises(ValueError, match="not ported"):
+        _port(ts, qp_kernel="xla", jac_mode="jacfwd", **kw)
+    with pytest.raises(ValueError, match="not ported"):
         _port(ts, **{**kw, "family": "casadi"})
+    with pytest.raises(ValueError, match="raw_qpwarm needs"):
+        s = _port(ts, qp_kernel="xla", qp_warm=True, **kw)
+        dx, wins, z0 = _port_inputs(data)
+        s.raw_qpwarm(dx.float(), wins.to(torch.float32), z0, None)
+    monkeypatch.setenv("LBMPC_CHOL_BLOCKED", "1")
+    _port(ts, qp_kernel="xla", **kw)          # nz=13 -> n_p=16: no K6 there
+    ts40 = t_build(dataclasses.replace(
+        ts.cfg, ocp=dataclasses.replace(ts.cfg.ocp, N=40)))
+    with pytest.raises(ValueError, match="not ported"):
+        _port(ts40, qp_kernel="xla", **kw)
