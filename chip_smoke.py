@@ -11,7 +11,12 @@ counts set to 0 just before it and read just after:
 - the default xla route (ops/ipm_fused on K5a chol_factor_solve, K5b
   chol_solve, K5c chol_resolve): the fused solve at batch 2048, the DMS
   flagship (casadi, N=100, q=100, nz=101) at batch 1024 with L stored and
-  with LBMPC_CHOL_STORE=0, and the default fused fleet at the cohort.
+  with LBMPC_CHOL_STORE=0, and the default fused fleet at the cohort;
+- the pallas_mono route (K3 gn_mehrotra, one launch per GN iteration) and
+  the pallas route (the plain GN phase + K2): the fused solves at batch
+  2048, the pallas_mono fused fleet and the pallas warm-chain fused fleet at
+  the cohort; and the shared-H QP solver (K4 mehrotra) on the N=20 LMPC QP
+  at the cohort.
 It times the kernels, their plain versions, the library yardsticks, the
 solves and the fleet steps with CUDA events.
 
@@ -45,7 +50,8 @@ IPM_SCHED = (8, 2)
 REPAIR_K = 24
 XLA_SCHED = (16, 8)          # the xla route's IPM schedule (bench_dms_flagship.py:118)
 DMS_BATCH = 1024
-LAST_PHASE = 12
+K4_OPT_ITERS = 60            # the float64 solve K4 and its plain version are held to
+LAST_PHASE = 17
 
 
 def log(msg: str) -> None:
@@ -95,17 +101,49 @@ def gn_work(B: int, N_: int, q: int, ne: int, nz: int, n_const: int):
     return by, fl
 
 
+# float32 operations per constraint row and Mehrotra iteration, outside the
+# G / G' products: rp (2), s_safe (1), d (2), s z and its sum (2), two KKT
+# row updates (t 3, dz 4, ds 2: 18), two ratio tests on (s, ds) and (z, dz)
+# (a quotient and a min each: 8), mu_aff (6), the corrector's rc (4) and
+# the update of s and z (4)
+QP_ROW_OPS = 47
+
+
 def qp_work(B: int, mI: int, nz: int, iters: int, warm_in: bool, warm_out: bool):
     """(bytes, float32 operations) of one Mehrotra solve: G, H, g, h (and a
-    warm state) read once, x, mu (and the state) written once; per
-    iteration the symmetric assembly (3 operations per row and unique
-    entry), five G / G' products, the factorization, four triangular
-    solves and the per-row updates."""
+    warm state) read once, x, mu (and the state) written once. Per
+    iteration: G'diag(d)G as d scaling G's rows once (mI nz) and a multiply
+    and an add per row and unique entry; six G / G' products (G'z, Gx, and
+    G't, G dx in each of the two KKT solves), 2 mI nz each; the per-row
+    operations (QP_ROW_OPS); the factorization (nz^3 / 3); four triangular
+    solves and Hx (nz^2 each, Hx 2 nz^2)."""
     by = 4 * (mI * nz + B * (nz * nz + nz + mI + nz + 1)
               + (2 * B * mI if warm_in else 0) + (2 * B * mI if warm_out else 0))
     pairs = nz * (nz + 1) // 2
-    per_it = 3 * mI * pairs + 10 * mI * nz + 20 * mI + nz ** 3 // 3 + 6 * nz * nz
+    per_it = (mI * nz + 2 * mI * pairs + 12 * mI * nz + QP_ROW_OPS * mI
+              + nz ** 3 // 3 + 6 * nz * nz)
     return by, B * iters * per_it
+
+
+def mono_work(B: int, N_: int, q: int, ne: int, nz: int, n_const: int, mI: int,
+              iters: int):
+    """(bytes, float32 operations) of one K3 call: z, dx0, the window, the
+    constants, G, h0 and Hp read once, e, d, mu and g written once (H stays
+    in the block); the GN phase's operations (gn_work), h's, and one cold
+    Mehrotra solve's (qp_work)."""
+    n = 4
+    by = 4 * (B * (nz + n + q * 8 + ne + 2 * nz + 1) + n_const + mI * (nz + 1 + n))
+    fl = (gn_work(B, N_, q, ne, nz, n_const)[1] + B * mI * 2 * (n + nz)
+          + qp_work(B, mI, nz, iters, False, False)[1])
+    return by, fl
+
+
+def shared_qp_work(B: int, mI: int, nz: int, iters: int):
+    """(bytes, float32 operations) of one K4 call: G and H read once for the
+    batch, g and h once a lane, x and a one-byte flag written once; the
+    operations of qp_work's Mehrotra iterations."""
+    by = 4 * (mI * nz + nz * nz + B * (2 * nz + mI)) + B
+    return by, qp_work(B, mI, nz, iters, False, False)[1]
 
 
 def bound_ms(by: float, fl: float) -> tuple:
@@ -155,7 +193,7 @@ def run_phases(dev, card: str, kind: str, args) -> int:
     import torch
 
     import lbmpc_tpu_torch as lt
-    from lbmpc_tpu_torch.ops import _cuda, chol_kernel, gn_kernel, qp_kernel
+    from lbmpc_tpu_torch.ops import _cuda, chol_kernel, gn_kernel, mono_kernel, qp_kernel
     from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
     from lbmpc_tpu_torch.ops.qp_kernel import QPSolverH, mehrotra_h, mehrotra_h_plain
     from lbmpc_tpu_torch.controllers.sqp_fused import (make_lbmpc_solver_fused,
@@ -172,7 +210,15 @@ def run_phases(dev, card: str, kind: str, args) -> int:
                "mehrotra_h": dict(name="mehrotra_h", route="cuda",
                                   source="lbmpc_tpu_torch/csrc/mehrotra_h.cu",
                                   replaces="lbmpc_tpu/ops/pallas_ipm.py:567",
-                                  library_ms=None)}
+                                  library_ms=None),
+               "gn_mehrotra": dict(name="gn_mehrotra", route="cuda",
+                                   source="lbmpc_tpu_torch/csrc/gn_mehrotra.cu",
+                                   replaces="lbmpc_tpu/ops/pallas_gn.py:558",
+                                   library_ms=None),
+               "mehrotra": dict(name="mehrotra", route="cuda",
+                                source="lbmpc_tpu_torch/csrc/mehrotra.cu",
+                                replaces="lbmpc_tpu/ops/pallas_ipm.py:789",
+                                library_ms=None)}
     for k, line in zip(chol_kernel.KERNELS, (175, 250, 320)):
         kernels[k.name] = dict(name=k.name, route="cuda",
                                source="lbmpc_tpu_torch/csrc/chol.cu",
@@ -186,16 +232,15 @@ def run_phases(dev, card: str, kind: str, args) -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32} "
         f"precision={torch.get_float32_matmul_precision()}")
     t0 = time.time()
-    logs = _cuda.build_all([gn_kernel.KERNEL, qp_kernel.KERNEL, *chol_kernel.KERNELS],
-                           verbose=True)
+    all_kernels = (gn_kernel.KERNEL, qp_kernel.KERNEL, mono_kernel.KERNEL,
+                   qp_kernel.KERNEL_SHARED, *chol_kernel.KERNELS)
+    logs = _cuda.build_all(all_kernels, verbose=True)
     for name, text in logs.items():
         for line in text.splitlines():
             if any(k in line for k in ("registers", "spill", "smem", "error")):
                 log(f"  {name}: {line.strip()}")
     log(f"  built {len(logs)} kernel sources in parallel in {time.time() - t0:.1f} s")
-    require(all(k.library_path().exists()
-                for k in (gn_kernel.KERNEL, qp_kernel.KERNEL, *chol_kernel.KERNELS)),
-            "kernels built")
+    require(all(k.library_path().exists() for k in all_kernels), "kernels built")
     if args.stop_after < 2:
         return finish(card, kind, kernels, args)
 
@@ -404,6 +449,9 @@ def run_phases(dev, card: str, kind: str, args) -> int:
         return finish(card, kind, kernels, args)
     xla_phases(dev, tag, args, kernels, cfg, sc, dx, win, dx_init)
     log(f"  wall time so far {time.time() - t_start:.1f} s")
+    if args.stop_after >= 12:
+        kernel_route_phases(dev, tag, args, kernels, cfg, sc, gn, dx, win, dx_init)
+        log(f"  wall time so far {time.time() - t_start:.1f} s")
     return finish(card, kind, kernels, args)
 
 
@@ -447,15 +495,19 @@ class CholRecorder:
         ipm_fused.chol_factor_solve = self._orig
 
 
-def mismatch(a, b) -> float:
-    """max |a - b| where the two differ; equal entries (inf and NaN in the
-    same place included) count 0, so a one-sided NaN is an infinite error."""
+def abs_diff(a, b):
+    """|a - b| where the two differ; equal entries (inf and NaN in the same
+    place included) count 0, and a one-sided NaN is an infinite error."""
     import torch
 
     same = (a == b) | (torch.isnan(a) & torch.isnan(b))
     d = torch.where(same, torch.zeros_like(a), (a - b).abs())
-    d = torch.where(torch.isnan(d), torch.full_like(d, float("inf")), d)
-    return d.max().item()
+    return torch.where(torch.isnan(d), torch.full_like(d, float("inf")), d)
+
+
+def mismatch(a, b) -> float:
+    """max |a - b| where the two differ (abs_diff)."""
+    return abs_diff(a, b).max().item()
 
 
 def finite_max(a) -> float:
@@ -470,10 +522,19 @@ def chol_counts() -> dict:
     return {k.name: k.launches for k in chol_kernel.KERNELS}
 
 
-def zero_counts() -> None:
-    from lbmpc_tpu_torch.ops import chol_kernel, gn_kernel, qp_kernel
+def route_counts() -> dict:
+    """Launches of the kernels of the GN-phase and Mehrotra routes."""
+    from lbmpc_tpu_torch.ops import gn_kernel, mono_kernel, qp_kernel
 
-    for k in (gn_kernel.KERNEL, qp_kernel.KERNEL, *chol_kernel.KERNELS):
+    return {k.name: k.launches for k in (gn_kernel.KERNEL, qp_kernel.KERNEL,
+                                         mono_kernel.KERNEL, qp_kernel.KERNEL_SHARED)}
+
+
+def zero_counts() -> None:
+    from lbmpc_tpu_torch.ops import chol_kernel, gn_kernel, mono_kernel, qp_kernel
+
+    for k in (gn_kernel.KERNEL, qp_kernel.KERNEL, mono_kernel.KERNEL,
+              qp_kernel.KERNEL_SHARED, *chol_kernel.KERNELS):
         k.launches = 0
 
 
@@ -709,6 +770,292 @@ def xla_phases(dev, tag: str, args, kernels: dict, cfg, sc, dx, win, dx_init) ->
         profile_fleet(dataclasses.replace(fcfg, iterations=3), xfleet_kw, dx_init, tag)
 
 
+def lmpc_qp():
+    """The N=20 LMPC QP of tests/test_pallas_ipm.py:38-54 (806 rows, a
+    616-row terminal set), from the port's host setup."""
+    from lbmpc_tpu_torch.controllers.condensed import build_fmincon_lmpc
+    from lbmpc_tpu_torch.models.mgcm import mgcm_dlti
+    from lbmpc_tpu_torch.sets.terminal import get_cons
+    from lbmpc_tpu_torch.synthesis import mat_ocp
+
+    Ad, Bd, C, _ = mgcm_dlti()
+    ocp = mat_ocp(Ad, Bd, C)
+    cs = get_cons(x_min=[0.0, 1.1875, 0.1547, -20.0], x_max=[1.0, 2.1875, 2.1547, 20.0],
+                  u_min=0.1547, u_max=2.1547, x_wp=[0.5, 1.6875, 1.1547, 0.0], u_wp=1.1547,
+                  A=Ad, B=Bd, K=ocp.Ks, LAMBDA=ocp.LAMBDA, PSI=ocp.PSI,
+                  LAMBDA_0=ocp.LAMBDA_0, PSI_0=ocp.PSI_0)
+    return build_fmincon_lmpc(Ad, Bd, ocp.Ks, ocp.Q, ocp.R, ocp.P, ocp.T, ocp.LAMBDA,
+                              ocp.PSI, cs, 20)
+
+
+def qp_step_gates(name: str, dk, muk, dp, mup, strict: bool) -> tuple:
+    """A QP step (d, mu) against another computation of it on the same
+    inputs. strict: the K2 class on every lane — |d| median < 1e-6, max
+    < 5e-2, |mu| < 1e-3. Otherwise (16 IPM iterations) float32 Mehrotra
+    stalls (mu >= 1e-6) on ~8 % of the bench lanes, where two
+    computations whose arithmetic differs by roundoff end far apart: every
+    lane outside the K2 class must be stalled on one side, and the stalled
+    shares must agree within 2 pp. Returns (max |d| over the lanes finite on
+    both sides, max |d| over the lanes held to the K2 class)."""
+    dd = (dk - dp).abs()
+    dl = dd.amax(dim=1)
+    fin = dl.isfinite()
+    off = ~((dl <= 5e-2) & ((muk - mup).abs() <= 1e-3))
+    stalled = ~((muk < 1e-6) & (mup < 1e-6))
+    sk, sp = (~(muk < 1e-6)).float().mean().item(), (~(mup < 1e-6)).float().mean().item()
+    log(f"  {name}: |dd| median={dd[fin].median().item():.3e} max={dl[fin].max().item():.3e}; "
+        f"lanes outside the K2 class {int(off.sum())}, of them not stalled "
+        f"{int((off & ~stalled).sum())}; stalled share {sk:.4f} / {sp:.4f}; "
+        f"bit-equal: {bool(torch_equal(dk, dp) and torch_equal(muk, mup))}")
+    require(dd[fin].median().item() < 1e-6, f"{name}: |dd| median < 1e-6")
+    if strict:
+        require(not bool(off.any()), f"{name}: |dd| max < 5e-2 and |dmu| < 1e-3 on every lane")
+        return dl.max().item(), dl.max().item()
+    require(not bool((off & ~stalled).any()) and abs(sk - sp) <= 0.02,
+            f"{name}: every lane outside the K2 class stalled on one side, "
+            "stalled shares within 2 pp")
+    held = dl[~stalled]
+    return dl[fin].max().item(), (held.max().item() if held.numel() else 0.0)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+def route_gates(name: str, zk, ck, zp, cp) -> float:
+    """A solve on a kernel route against another route on the same inputs:
+    |dz| median < 1e-6; the control the plant receives (c_0) within 5e-2 on
+    every lane; at most 1 % of lanes beyond 5e-2 anywhere in z (the lanes
+    whose 16-iteration first QP stalled in float32, qp_step_gates); conv
+    >= 0.99 and within 0.5 pp."""
+    dz = (zk - zp).abs()
+    dl = dz.amax(dim=1)
+    far = ~(dl <= 5e-2)
+    fk, fp = ck.float().mean().item(), cp.float().mean().item()
+    log(f"  {name}: |dz| median={dz.median().item():.3e} max={dz.max().item():.3e} "
+        f"c_0 max={dz[:, 0].max().item():.3e}, lanes beyond 5e-2 {int(far.sum())} "
+        f"(bit-equal: {torch_equal(zk, zp)}) conv {fk:.6f} / {fp:.6f}")
+    require(bool(zk.isfinite().all()), f"{name}: solve finite")
+    require(dz.median().item() < 1e-6 and dz[:, 0].max().item() < 5e-2
+            and far.float().mean().item() <= 0.01,
+            f"{name}: |dz| median < 1e-6, c_0 within 5e-2, <= 1 % of lanes beyond 5e-2")
+    require(fk >= 0.99 and abs(fk - fp) <= 0.005, f"{name}: conv >= 0.99, within 0.5 pp")
+    return dz.max().item()
+
+
+def kernel_route_phases(dev, tag: str, args, kernels: dict, cfg, sc, gn, dx, win,
+                        dx_init) -> None:
+    """Phases 12-16: the pallas_mono route (K3), the pallas route (the plain
+    GN phase + K2) and the shared-H QP (K4)."""
+    import torch
+
+    from lbmpc_tpu_torch.controllers.sqp_fused import make_lbmpc_solver_fused
+    from lbmpc_tpu_torch.ops.mono_kernel import MonoPhase
+    from lbmpc_tpu_torch.ops.qp_kernel import (QPSolver, mehrotra, mehrotra_h, mehrotra_plain,
+                                               step_rhs)
+    from lbmpc_tpu_torch.runtime.scenario import build_fleet_episode
+
+    qp = sc.qp
+    mI, nz = qp.G.shape
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    G, h0, Hp = f(qp.G), f(qp.h0), f(qp.Hp)
+    kw = dict(family="fmincon", delta=cfg.plant.ts, bandwidth=cfg.oracle.bandwidth,
+              ridge=cfg.oracle.ridge, dx_ref=np.asarray(cfg.dx_ref), ipm_iters=XLA_SCHED,
+              alphas=LADDER, device=dev)
+    route = lambda qk, sqp_iters=2, **extra: make_lbmpc_solver_fused(
+        qp, sc.A, sc.B, sc.ocp.Ks, sc.w, qp_kernel=qk, sqp_iters=sqp_iters, **kw, **extra)
+    z0 = torch.zeros(BATCH, nz, dtype=torch.float32, device=dev)
+    none = {"gn_phase": 0, "mehrotra_h": 0, "gn_mehrotra": 0, "mehrotra": 0}
+
+    # ---- phase 12: K3 against its plain version and against K1 -> K2 -----------
+    log(f"phase 12: K3 gn_mehrotra vs plain and vs K1 -> K2 cold, batch {BATCH}, "
+        f"ipm {XLA_SCHED}, the inputs of a real solve's two GN iterations")
+    z1 = route("pallas_mono", sqp_iters=1)(dx, win, z0)[0]
+    monos = {it: MonoPhase(gn, G, h0, Hp, it) for it in XLA_SCHED}
+    k3_err = k3_held = 0.0
+    for zname, zin in (("z0", z0), ("z1", z1)):
+        for it, mono in monos.items():
+            e, d, mu, g = mono(zin, dx, win)
+            ep, dp, mup, gp = mono.plain(zin, dx, win)
+            e1, H1, g1 = gn(zin, dx, win)
+            x2, mu2, _ = mehrotra_h(G, H1, g1, step_rhs(h0, Hp, G, dx, zin), it)
+            torch.cuda.synchronize()
+            # the K1 class (phase 2): near the optimum g = 2 J'e is small
+            # by cancellation, so its roundoff scales with H, not with g
+            hmax = H1.abs().max().item()
+            ee, eg = (e - ep).abs().max().item(), (g - gp).abs().max().item()
+            log(f"  {zname}, {it} iters: max|H|={hmax:.4g} max|g|={gp.abs().max().item():.4g} "
+                f"error e={ee:.3e} g={eg:.3e}; mu>=1e-6 on "
+                f"{(~(mu < 1e-6)).float().mean().item():.4f} of lanes")
+            eg = max(ee, eg)
+            require(eg <= 1e-5 * hmax, f"K3 e and g within 1e-5 max|H| ({zname}, {it} iters)")
+            d_all, d_held = qp_step_gates(f"K3 vs plain ({zname}, {it} iters)",
+                                          d, mu, dp, mup, it <= 8)
+            k3_err, k3_held = max(k3_err, eg, d_all), max(k3_held, eg, d_held)
+            # the same device code (gn_body.cuh, mehrotra_body.cuh) on the same
+            # inputs, with h formed in the same order (step_rhs)
+            require(all(torch_equal(a, b) for a, b in ((e, e1), (g, g1), (d, x2), (mu, mu2))),
+                    f"K3 equals K1 then K2 cold bit for bit ({zname}, {it} iters)")
+    kernels["gn_mehrotra"].update(max_abs_err=k3_err, max_abs_err_held=k3_held)
+    if args.stop_after < 13:
+        return
+
+    # ---- phase 13: the fused solves on the two routes -------------------------
+    log(f"phase 13: fused SQP at batch {BATCH} on the pallas_mono and pallas routes, "
+        f"ipm {XLA_SCHED}")
+    solves = {"pallas_mono": route("pallas_mono"), "pallas": route("pallas")}
+    mono_p, full_k = route("pallas_mono", plain=True), route("pallas_full")
+    out, per = {}, {}
+    for name, s in (*solves.items(), ("pallas_full", full_k)):
+        torch.cuda.synchronize()
+        zero_counts()
+        out[name] = s(dx, win, z0)
+        torch.cuda.synchronize()
+        per[name] = route_counts()
+    log(f"  launches per solve {per}")
+    route_gates("pallas_mono vs its plain route", *out["pallas_mono"], *mono_p(dx, win, z0))
+    (zm, cm), (zf, cf) = out["pallas_mono"], out["pallas_full"]
+    log(f"  pallas_mono vs pallas_full (qp_warm off): max|dz|={(zm - zf).abs().max().item():.3e}"
+        f" conv {cm.float().mean().item():.6f} / {cf.float().mean().item():.6f}")
+    require(torch_equal(zm, zf) and torch_equal(cm, cf),
+            "pallas_mono equals pallas_full without qp_warm bit for bit (z and conv)")
+    route_gates("pallas vs pallas_full", *out["pallas"], *out["pallas_full"])
+    require(per["pallas_mono"] == dict(none, gn_mehrotra=2), "pallas_mono: 2 K3 launches a solve")
+    require(per["pallas"] == dict(none, mehrotra_h=2), "pallas: 2 K2 and no K1 launches a solve")
+    if args.stop_after < 14:
+        return
+
+    # ---- phase 14: the two routes' fleets ---------------------------------------
+    fcfg = dataclasses.replace(cfg, iterations=STEPS)
+    fleets = {"pallas_mono": dict(backend="fused", sqp_iters=2, ipm_iters=XLA_SCHED,
+                                  qp_kernel="pallas_mono", device=dev),
+              "pallas": dict(backend="fused", sqp_iters=2, ipm_iters=IPM_SCHED,
+                             qp_kernel="pallas", qp_warm=True, warm_chain=True, device=dev)}
+    want = {"pallas_mono": dict(none, gn_mehrotra=2 * STEPS),
+            "pallas": dict(none, mehrotra_h=2 * STEPS)}
+    runs = {}
+    for name, fkw in fleets.items():
+        log(f"phase 14: {name} fused fleet, cohort {COHORT}, {STEPS} steps, {fkw}")
+        _, run_k = build_fleet_episode(fcfg, **fkw)
+        _, run_p = build_fleet_episode(fcfg, plain=True, **fkw)
+        runs[name] = run_k
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.time()
+        res = run_k(dx_init)
+        torch.cuda.synchronize()
+        fleet_s = time.time() - t0
+        per = route_counts()
+        sysH = res.sys_history
+        conv_steps = res.solver_converged.float().mean(dim=0)
+        log(f"  {fleet_s * 1e3 / STEPS:.3f} ms/step (host clock, first run, incl. warm-up) "
+            f"conv min over steps={conv_steps.min().item():.6f} mean="
+            f"{conv_steps.mean().item():.6f} launches {per} {tag}")
+        require(tuple(sysH.shape) == (COHORT, STEPS + 1, 5)
+                and bool(torch.isfinite(sysH).all()), f"{name} fleet history finite, (B, T+1, 5)")
+        require(per == want[name], f"{name} fleet launches {want[name]}")
+        require(conv_steps.min().item() >= 0.99, f"{name} fleet conv >= 0.99 every step")
+        if name == "pallas_mono":
+            kernels["gn_mehrotra"]["launches"] = per["gn_mehrotra"]
+        res_p = run_p(dx_init[:256])
+        d = (sysH[:256] - res_p.sys_history).abs()
+        log(f"  first 256 lanes vs plain route: |d sys_history| median={d.median().item():.3e} "
+            f"max={d.max().item():.3e}; plain conv="
+            f"{res_p.solver_converged.float().mean().item():.6f}")
+        require(d.median().item() < 1e-6 and d.max().item() < 5e-2,
+                f"{name} fleet sys_history vs the plain route: median < 1e-6, max < 5e-2")
+    if args.stop_after < 15:
+        return
+
+    # ---- phase 15: K4, the shared-H QP solver -----------------------------------
+    log(f"phase 15: K4 mehrotra (shared H) vs plain on the N=20 LMPC QP, batch {COHORT}, "
+        "20 iterations")
+    lqp = lmpc_qp()
+    rng = np.random.default_rng(5)
+    dxs = np.array([-0.35, -0.4, 0.0, 0.0]) + 0.01 * rng.standard_normal((COHORT, 4))
+    g4, h4 = (f(a).contiguous() for a in ((lqp.Gg @ dxs.T).T + lqp.g0,
+                                           lqp.h0 + (lqp.Hp @ dxs.T).T))
+    log(f"  G={lqp.G.shape}")
+    k4, k4p = (QPSolver(lqp.H, lqp.G, iters=20, device=dev, plain=p) for p in (False, True))
+    torch.cuda.synchronize()
+    zero_counts()
+    xk, ck = k4.solve(g4, h4)
+    torch.cuda.synchronize()
+    per = route_counts()
+    kernels["mehrotra"]["launches"] = per["mehrotra"]
+    require(per == dict(none, mehrotra=1), "QPSolver.solve launches K4 once")
+    # the comparison: the same solve with each lane's final mu, and the
+    # plain version in float64 at K4_OPT_ITERS iterations as the optimum
+    xk, ck, muk = mehrotra(k4.G, k4.H, g4, h4, k4.iters)
+    xp, cp, mup = mehrotra_plain(k4.G, k4.H, g4, h4, k4.iters)
+    x64 = mehrotra_plain(k4.G.double(), k4.H.double(), g4.double(), h4.double(),
+                         K4_OPT_ITERS)[0]
+    nan_k, nan_p = xk.isnan().any(dim=1), xp.isnan().any(dim=1)
+    fk, fp = ck.float().mean().item(), cp.float().mean().item()
+    dl = (xk - xp).abs().amax(dim=1)
+    fin, off = dl.isfinite(), ~(dl <= 5e-2)
+    ek, ep = ((x.double() - x64).abs().amax(dim=1) for x in (xk, xp))
+    far_k, far_p = ~(ek <= 5e-2), ~(ep <= 5e-2)
+    sk, sp = far_k.float().mean().item(), far_p.float().mean().item()
+    log(f"  kernel vs plain: |dx| median={(xk - xp)[fin].abs().median().item():.3e} "
+        f"max={dl[fin].max().item():.3e}, lanes beyond 5e-2 {int(off.sum())} (of them with "
+        f"mu < 1e-6 on both sides {int((off & (muk < 1e-6) & (mup < 1e-6)).sum())}); "
+        f"lanes with a NaN: kernel {int(nan_k.sum())} plain {int(nan_p.sum())}; conv "
+        f"kernel={fk:.6f} plain={fp:.6f}, flags agree on {(ck == cp).float().mean().item():.6f}")
+    log(f"  against the float64 optimum ({K4_OPT_ITERS} iterations): lanes beyond 5e-2 kernel "
+        f"{int(far_k.sum())} ({sk:.4f}) plain {int(far_p.sum())} ({sp:.4f})")
+    # lanes apart although mu is small on both sides: which side left the optimum
+    H64, g64 = k4.H.double(), g4.double()
+    obj = lambda x: 0.5 * ((x.double() @ H64) * x.double()).sum(dim=1) + (g64 * x.double()).sum(dim=1)
+    ok_, op_, o64 = obj(xk), obj(xp), obj(x64)
+    for lane in torch.nonzero(off & (muk < 1e-6) & (mup < 1e-6))[:4, 0].tolist():
+        log(f"  lane {lane}: mu kernel {muk[lane].item():.3e} plain {mup[lane].item():.3e}; "
+            f"from the float64 optimum {ek[lane].item():.3e} / {ep[lane].item():.3e}; objective "
+            f"{ok_[lane].item():.6f} / {op_[lane].item():.6f} (optimum {o64[lane].item():.6f})")
+    require((xk - xp)[fin].abs().median().item() < 1e-6, "K4 |dx| median < 1e-6")
+    require(sk <= sp + 0.005,
+            "K4 as close to the float64 optimum as the plain version (share of lanes beyond "
+            "5e-2 at most 0.5 pp above the plain version's)")
+    require(not bool((nan_k & ck).any() or (nan_p & cp).any()),
+            "K4: a lane with a NaN is flagged unconverged")
+    require(fk > 0.95 and abs(fk - fp) <= 0.005,
+            "K4 conv > 0.95 and within 0.5 pp of the plain version")
+    kernels["mehrotra"].update(max_abs_err=dl[fin].max().item(), nan_lanes=int(nan_k.sum()),
+                               far_from_float64=[int(far_k.sum()), int(far_p.sum())])
+    if args.stop_after < 16:
+        return
+
+    # ---- phase 16: timings -------------------------------------------------------
+    log("phase 16: pallas_mono / pallas / K4 timings")
+    t = {"k3_16": cuda_ms(lambda: monos[16](z0, dx, win)),
+         "k3_16_plain": cuda_ms(lambda: monos[16].plain(z0, dx, win), reps=2, warmup=1),
+         "k3_8": cuda_ms(lambda: monos[8](z1, dx, win)),
+         "k3_8_plain": cuda_ms(lambda: monos[8].plain(z1, dx, win), reps=2, warmup=1),
+         "k4": cuda_ms(lambda: k4.solve(g4, h4), reps=10),
+         "k4_plain": cuda_ms(lambda: k4p.solve(g4, h4), reps=1, warmup=1),
+         "mono_solve": cuda_ms(lambda: solves["pallas_mono"](dx, win, z0), reps=5),
+         "pallas_solve": cuda_ms(lambda: solves["pallas"](dx, win, z0), reps=5)}
+    for name, run in runs.items():
+        t0 = time.time()
+        run(dx_init)
+        torch.cuda.synchronize()
+        t[f"{name}_fleet_step"] = (time.time() - t0) * 1e3 / STEPS
+    for k, v in t.items():
+        log(f"  time {k} = {v:.4f} ms {tag}")
+    ne = (N - 2) * 5 + 8
+    b3 = {it: bound_ms(*mono_work(BATCH, N, Q, ne, nz, gn.cst.numel(), mI, it))
+          for it in XLA_SCHED}
+    b4 = bound_ms(*shared_qp_work(COHORT, lqp.G.shape[0], lqp.nz, 20))
+    kernels["gn_mehrotra"].update(ms=t["k3_16"], plain_ms=t["k3_16_plain"], bound_ms=b3[16][0],
+                                  bound_by=b3[16][1])
+    kernels["mehrotra"].update(ms=t["k4"], plain_ms=t["k4_plain"], bound_ms=b4[0],
+                               bound_by=b4[1])
+    log(f"  bound K3 16 iters {b3[16][0]:.4f} ms ({b3[16][1]}), 8 iters {b3[8][0]:.4f} ms "
+        f"({b3[8][1]}); K4 {b4[0]:.4f} ms ({b4[1]}) {tag}")
+
+
 def profile_fleet(cfg, fleet_kw: dict, dx_init, tag: str) -> None:
     """torch.profiler over a 3-step fleet episode at the cohort: device time
     by kernel name and the device's busy share of the host wall time."""
@@ -751,7 +1098,9 @@ def finish(card: str, kind: str, kernels: dict, args) -> int:
         log(f"phase {LAST_PHASE}: kernels")
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
-        rows = [{k: v.get(k) for k in keys} for v in kernels.values()]
+        extra = ("max_abs_err_held", "nan_lanes", "far_from_float64")
+        rows = [{**{k: v.get(k) for k in keys}, **{k: v[k] for k in extra if k in v}}
+                for v in kernels.values()]
         require(all(r[k] is not None for r in rows for k in keys if k != "library_ms"),
                 "every kernel row complete")
         log(card)

@@ -1,20 +1,29 @@
 """Batch-level LBMPC SQP: the Gauss-Newton loop at batch level.
 
-Port of lbmpc_tpu/controllers/sqp_fused.py on two routes, each Gauss-Newton
-(GN) iteration followed by the batched l1-merit Armijo ladder in plain
-torch, float32 throughout as the reference casts it:
+Port of lbmpc_tpu/controllers/sqp_fused.py on all four routes of the
+reference's `qp_kernel`, each Gauss-Newton (GN) iteration followed by the
+batched l1-merit Armijo ladder in plain torch, float32 throughout as the
+reference casts it:
 - `qp_kernel="xla"` (the default, as in the reference): the residual and
   its Jacobian J in batched torch (K1's plain version, controllers/lbmpc),
   H = 2J'J + 1e-6 I and g = 2J'e, then one fused QP (ops/ipm_fused) whose
   KKT solves run on the K5 Cholesky kernels. The fmincon and casadi
   families, any nz up to 128;
-- `qp_kernel="pallas_full"` (the kernel route): two launches per GN
-  iteration — K1 (ops/gn_kernel.GNPhase: residual, H and g for every lane)
-  and K2 (ops/qp_kernel: the Mehrotra QP with a Hessian per lane, fed K1's
-  H as it is). The m=1 fmincon family at nz <= 32 only.
+- `qp_kernel="pallas"`: the same plain GN phase feeding K2 (ops/qp_kernel:
+  the Mehrotra QP with a Hessian per lane), one launch per GN iteration.
+  Any family at nz <= 32;
+- `qp_kernel="pallas_full"`: two launches per GN iteration — K1
+  (ops/gn_kernel.GNPhase: residual, H and g for every lane) and K2, fed
+  K1's H as it is. The m=1 fmincon family at nz <= 32;
+- `qp_kernel="pallas_mono"`: one launch per GN iteration — K3
+  (ops/mono_kernel: K1's GN body and a cold K2 loop in one block per lane).
+  The m=1 fmincon family at nz <= 32; qp_warm is ignored, as in the
+  reference.
+The kernel routes hand K2/K3 the QP right-hand side h = (h0 + Hp dx0) - G z
+formed in one order (ops/qp_kernel.step_rhs), so pallas_mono and
+pallas_full without qp_warm solve the same QPs bit for bit.
 
-"pallas" and "pallas_mono", jac_mode="jacfwd", and the vmapped repair are
-not ported yet and raise.
+jac_mode="jacfwd" and the vmapped repair are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.oracle import DataWindow
 from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
 from lbmpc_tpu_torch.ops.ipm_fused import build_fused_qp_solver
-from lbmpc_tpu_torch.ops.qp_kernel import QPSolverH
+from lbmpc_tpu_torch.ops.mono_kernel import MonoPhase
+from lbmpc_tpu_torch.ops.qp_kernel import MI_MAX, NZ_MAX, QPSolverH, step_rhs
 
 _ALPHAS = (1.0, 0.5, 0.25, 0.125, 0.0625)
 _F32 = torch.float32
@@ -44,24 +54,31 @@ def _check_route(qp_kernel: str, family: str, qp: CondensedQP,
                          "fmincon and casadi families")
     if qp_kernel == "xla":
         return
-    if qp_kernel != "pallas_full":
-        raise ValueError(f"qp_kernel={qp_kernel!r} is not ported yet; the "
-                         "port has qp_kernel='xla' and 'pallas_full'")
-    if family != "fmincon" or qp.m != 1 or qp.nz > 32:
+    if qp_kernel not in ("pallas", "pallas_full", "pallas_mono"):
+        raise ValueError(f"qp_kernel={qp_kernel!r}: the port has 'xla', 'pallas', "
+                         "'pallas_full' and 'pallas_mono'")
+    mI = qp.G.shape[0]
+    if qp_kernel == "pallas":
+        if qp.nz > NZ_MAX or mI > MI_MAX:
+            raise ValueError(
+                f"qp_kernel='pallas' (K2) is ported at nz <= {NZ_MAX} and mI <= "
+                f"{MI_MAX}; nz={qp.nz}, mI={mI} is not ported yet: use qp_kernel='xla'")
+        return
+    if family != "fmincon" or qp.m != 1 or qp.nz > NZ_MAX or mI > MI_MAX:
         raise ValueError(
-            "qp_kernel='pallas_full' is ported for the m=1 fmincon family at "
-            f"nz <= 32 (K1, K2); family={family!r} at nz={qp.nz} is not "
+            f"qp_kernel={qp_kernel!r} is ported for the m=1 fmincon family at "
+            f"nz <= {NZ_MAX} (K1, K2, K3); family={family!r} at nz={qp.nz} is not "
             "ported yet: use qp_kernel='xla'")
 
 
 class FusedSolver:
     """Returned by make_lbmpc_solver_fused. `solver(dx0, windows, z_ws)` ->
     (z (B, nz), conv (B,)) casts to float32 on the solver's device;
-    `raw` takes float32 tensors as they are. On the kernel route with
-    qp_warm, `raw_qpwarm` (dx0, windows, z_ws, qp_state) -> (z, conv,
-    qp_state) threads the QP kernel's interior (s, z) across solves, seeded
-    by `init_qp_state`; the xla route ignores qp_warm, as the reference
-    does."""
+    `raw` takes float32 tensors as they are. On the routes with K2 ("pallas",
+    "pallas_full") with qp_warm, `raw_qpwarm` (dx0, windows, z_ws,
+    qp_state) -> (z, conv, qp_state) threads the QP kernel's interior (s, z)
+    across solves, seeded by `init_qp_state`; the xla and pallas_mono routes
+    ignore qp_warm, as the reference does."""
 
     def __init__(self, qp: CondensedQP, A, B, Ks, w: LBMPCWeights,
                  family: str = "fmincon", delta: float = 0.01,
@@ -97,6 +114,11 @@ class FusedSolver:
                                                      plain=plain)
                            for it in set(self.ipm_sched)}
             return
+        if qp_kernel == "pallas_mono":
+            self._mono = {it: MonoPhase(self.gn, self.G, self.h0, self.Hp, it,
+                                        d_cap=d_cap)
+                          for it in set(self.ipm_sched)}
+            return
         # per-position variants: with qp_warm, QP i>0 consumes the previous
         # QP's interior state and QP i<last produces one; the receding-
         # horizon chain (loop mode) makes every position warm-in and warm-out
@@ -114,7 +136,8 @@ class FusedSolver:
         return (self.qp_warm and i > 0, self.qp_warm and i < self.sqp_iters - 1)
 
     def _gn(self, z, dx0, windows):
-        return (self.gn.plain if self.plain else self.gn)(z, dx0, windows)
+        kernel = self.qp_kernel == "pallas_full" and not self.plain
+        return (self.gn if kernel else self.gn.plain)(z, dx0, windows)
 
     def cost(self, z, dx0, windows):
         e = self.gn.residual(z, dx0, windows)
@@ -129,14 +152,14 @@ class FusedSolver:
         return self._solve(dx0, windows, z, None)[:2]
 
     def raw_qpwarm(self, dx0, windows: DataWindow, z, qp_state):
-        if not (self.qp_warm and self.qp_kernel == "pallas_full"):
-            raise ValueError("raw_qpwarm needs qp_warm=True on the kernel "
-                             "route (qp_kernel='pallas_full')")
+        if not (self.qp_warm and self.qp_kernel in ("pallas", "pallas_full")):
+            raise ValueError("raw_qpwarm needs qp_warm=True on a route with K2 "
+                             "(qp_kernel='pallas' or 'pallas_full')")
         return self._solve(dx0, windows, z, qp_state)
 
     def init_qp_state(self, dx0, z_ws):
-        h = self.h0[None, :] + dx0.to(_F32) @ self.Hp.T
-        return QPSolverH.cold_state(h - z_ws.to(_F32) @ self.G.T)
+        return QPSolverH.cold_state(step_rhs(self.h0, self.Hp, self.G, dx0.to(_F32),
+                                             z_ws.to(_F32)))
 
     def _solve(self, dx0, windows: DataWindow, z, qp_state):
         loop = qp_state is not None
@@ -154,14 +177,18 @@ class FusedSolver:
                     H, gb, h - z @ G.T)
                 del H
                 d, mu_last = sub.x, sub.mu
+            elif self.qp_kernel == "pallas_mono":
+                mono = self._mono[self.ipm_sched[it]]
+                e, d, mu_last, gb = (mono.plain if self.plain else mono)(z, dx0, windows)
             else:
                 e, H, gb = self._gn(z, dx0, windows)
                 win, wout = (True, True) if loop else self._wio(it)
                 qp = self._qps[(self.ipm_sched[it], win, wout)]
-                out = qp.raw_packed(H, gb, h - z @ G.T, warm_state)
+                out = qp.raw_packed(H, gb, step_rhs(self.h0, self.Hp, G, dx0, z),
+                                    warm_state)
                 d, mu_last = out[0], out[1]
                 warm_state = out[2] if wout else None
-            # merit at the current iterate reuses K1's residual
+            # merit at the current iterate reuses the GN phase's residual
             v0 = torch.clamp(z @ G.T - h, min=0.0).sum(dim=1)
             m0 = (e * e).sum(dim=1) + self.rho * v0
             dirderiv = (gb * d).sum(dim=1) - self.rho * v0

@@ -4,8 +4,9 @@ Each kernel source `csrc/<source>.cu` exports one `<name>_launch(...)` per
 kernel in it, which launches on the stream it is given and returns
 cudaGetLastError(), and `<source>_error_string(code)`. The shared library is
 compiled at first use into build/lbmpc_tpu_torch/ for sm_90a, keyed by a hash
-of the source and flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is. Kernels that share a source share its library.
+of the source, the shared device headers (csrc/*.cuh) and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is. Kernels
+that share a source share its library.
 """
 
 from __future__ import annotations
@@ -55,8 +56,10 @@ class CudaKernel:
         self._err = None
 
     def library_path(self) -> pathlib.Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        # the shared device headers (csrc/*.cuh) are part of every source
+        text = self.source.read_bytes() + b"".join(
+            p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
 
     def build_command(self, out: pathlib.Path, verbose: bool = False) -> list:

@@ -1,0 +1,82 @@
+"""K3 — one launch per Gauss-Newton iteration: the GN phase and the whole
+cold Mehrotra QP loop of every lane (csrc/gn_mehrotra.cu).
+
+Port of lbmpc_tpu/ops/pallas_gn.py, build_pallas_gn_kernel(...,
+ipm=dict(iters, d_cap)) -> kernel_ipm (the qp_kernel="pallas_mono" route of
+controllers/sqp_fused). Per lane the kernel runs K1's GN body (residual e,
+H = 2J'J + 1e-6 I + the constant rows, g = 2J'e), forms the QP's step-space
+right-hand side h = (h0 + Hp dx0) - G z, and runs K2's loop cold on
+(H, g, G, h). It returns e (B, ne), the step d (B, nz), mu (B,) and g
+(B, nz); H never leaves the kernel. The wrapper routes by device: a CUDA
+tensor always launches the kernel; a CPU tensor takes the plain version,
+the composition GNPhase.plain -> step_rhs -> mehrotra_h_plain (cold).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lbmpc_tpu_torch.oracle import DataWindow
+from lbmpc_tpu_torch.ops._cuda import F, I, P, CudaKernel, check, ptr
+from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
+from lbmpc_tpu_torch.ops.qp_kernel import MI_MAX, mehrotra_h_plain, step_rhs
+
+KERNEL = CudaKernel("gn_mehrotra", [P] * 13 + [I, I, I, I, I, F, F, P])
+
+
+class MonoPhase:
+    """K3 for one condensed QP and one IPM iteration count: GN phase + cold
+    Mehrotra loop. `gn` is the solver's GNPhase (its constants and plain
+    version); G (mI, nz), h0 (mI,) and Hp (mI, n) are float32 tensors on
+    gn's device. Calling it returns (e, d, mu, g) for z (B, nz), dx0 (B, n)
+    and a window batched over the same lanes."""
+
+    def __init__(self, gn: GNPhase, G, h0, Hp, iters: int, d_cap: float = 1e6,
+                 tau: float = 0.995):
+        self.gn = gn
+        self.G, self.h0, self.Hp = G, h0, Hp
+        self.iters, self.d_cap, self.tau = int(iters), float(d_cap), float(tau)
+        self.kernel_ok = gn.kernel_ok and G.shape[0] <= MI_MAX
+
+    def plain(self, z, dx0, window: DataWindow):
+        """The plain PyTorch version: same function, any device."""
+        e, H, g = self.gn.plain(z, dx0, window)
+        h = step_rhs(self.h0, self.Hp, self.G, dx0, z)
+        d, mu, _ = mehrotra_h_plain(self.G, H, g, h, self.iters, self.tau, self.d_cap)
+        return e, d, mu, g
+
+    def __call__(self, z, dx0, window: DataWindow):
+        if z.device.type == "cpu":
+            return self.plain(z, dx0, window)
+        if z.device.type != "cuda":
+            raise ValueError(f"gn_mehrotra runs on cuda or cpu, not {z.device}")
+        return self._launch(z, dx0, window)
+
+    def _launch(self, z, dx0, window: DataWindow):
+        if not self.kernel_ok:
+            raise ValueError("the gn_mehrotra kernel covers the fmincon family with "
+                             f"n=4, m=1, one theta, nz <= 32 and mI <= {MI_MAX}")
+        gn = self.gn
+        dev = z.device
+        Bsz = z.shape[0]
+        q = window.X.shape[-2]
+        mI = self.G.shape[0]
+        check("z", z, (Bsz, gn.nz), dev)
+        check("dx0", dx0, (Bsz, gn.n), dev)
+        check("window.X", window.X, (Bsz, q, 3), dev)
+        check("window.Y", window.Y, (Bsz, q, gn.n), dev)
+        check("window.valid", window.valid, (Bsz, q), dev)
+        check("constants", gn.cst, tuple(gn.cst.shape), dev)
+        check("G", self.G, (mI, gn.nz), dev)
+        check("h0", self.h0, (mI,), dev)
+        check("Hp", self.Hp, (mI, gn.n), dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        e = torch.empty(Bsz, gn.ne, **f32)
+        d = torch.empty(Bsz, gn.nz, **f32)
+        mu = torch.empty(Bsz, **f32)
+        g = torch.empty(Bsz, gn.nz, **f32)
+        KERNEL.launch(dev, ptr(gn.cst), ptr(z), ptr(dx0), ptr(window.X), ptr(window.Y),
+                      ptr(window.valid), ptr(self.G), ptr(self.h0), ptr(self.Hp),
+                      ptr(e), ptr(d), ptr(mu), ptr(g), I(Bsz), I(gn.N), I(q), I(mI),
+                      I(self.iters), F(self.tau), F(self.d_cap))
+        return e, d, mu, g

@@ -1,25 +1,33 @@
-"""K2 — the per-lane-Hessian Mehrotra QP: the whole fixed-iteration
-predictor-corrector loop in one launch (csrc/mehrotra_h.cu).
+"""K2 and K4 — fixed-iteration Mehrotra predictor-corrector QPs, the whole
+loop in one launch: K2 with a Hessian per lane (csrc/mehrotra_h.cu), K4
+with one H shared by the batch (csrc/mehrotra.cu). Both run the loop of
+csrc/mehrotra_body.cuh, which K3 (ops/mono_kernel) runs too.
 
-Port of lbmpc_tpu/ops/pallas_ipm.py (build_pallas_qp_solver_h). Each lane
-solves min 1/2 x'H_b x + g_b'x s.t. G x <= h_b with G shared by the batch.
-The wrapper routes by device: a CUDA tensor always launches the kernel; a
-CPU tensor takes the plain version below. The warm state is the port's own
-layout: a tuple (s, z) of (B, mI) float32 tensors in G's row order.
+Ports of lbmpc_tpu/ops/pallas_ipm.py: build_pallas_qp_solver_h (K2) and
+build_pallas_qp_solver (K4). Each lane solves min 1/2 x'H x + g'x s.t.
+G x <= h with G shared by the batch. The wrappers route by device: a CUDA
+tensor always launches the kernel; a CPU tensor takes the plain version
+below (the same iteration on batched tensor ops). K2's warm state is the
+port's own layout: a tuple (s, z) of (B, mI) float32 tensors in G's row
+order.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F_
 
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.ops._cuda import F, I, P, CudaKernel, check, ptr
 
 KERNEL = CudaKernel("mehrotra_h", [P] * 10 + [I, I, I, I, F, F, F, P])
+KERNEL_SHARED = CudaKernel("mehrotra", [P] * 7 + [I, I, I, I, F, F, P])
 
-BIG = 1e6          # ratio-test sentinel (pallas_ipm.py:34)
-RIDGE = 1e-6       # KKT ridge
+BIG = 1e6           # ratio-test sentinel (pallas_ipm.py:34)
+RIDGE = 1e-6        # KKT ridge
+SHARED_D_CAP = 1e7  # build_pallas_qp_solver's d cap (pallas_ipm.py:723)
+NZ_MAX, MI_MAX = 32, 1024   # csrc/mehrotra_body.cuh kNzMax, kMaxRows
 
 
 def analyze_constraint_rows(G: np.ndarray) -> dict:
@@ -50,6 +58,20 @@ def analyze_constraint_rows(G: np.ndarray) -> dict:
                 mS=len(sp_rows))
 
 
+def step_rhs(h0, Hp, G, dx0, z):
+    """The SQP's QP right-hand side in step space, h = (h0 + Hp dx0) - G z,
+    each product and sum rounded on its own and added in index order: as K3
+    forms it in-kernel, so the kernel routes hand their QPs the same h bit
+    for bit."""
+    h = h0[None, :]
+    for j in range(Hp.shape[1]):
+        h = h + Hp[:, j] * dx0[:, j, None]
+    gz = torch.zeros_like(h)
+    for c in range(G.shape[1]):
+        gz = gz + G[:, c] * z[:, c, None]
+    return h - gz
+
+
 def _cholesky_floor(M: torch.Tensor) -> torch.Tensor:
     """Left-looking batched Cholesky with the kernel's pivot floor
     sqrt(max(., 1e-30)) (pallas_ipm.py:328); reads M's lower triangle."""
@@ -65,11 +87,17 @@ def _cholesky_floor(M: torch.Tensor) -> torch.Tensor:
 
 
 def mehrotra_h_plain(G, H, g, h, iters: int, tau: float = 0.995,
-                     d_cap: float = 1e6, warm=None, warm_eps: float = 1e-5):
-    """The plain PyTorch version of the kernel (same iteration, batched
-    tensor ops). Returns (x (B, nz), mu (B,), (s, z))."""
+                     d_cap: float = 1e6, warm=None, warm_eps: float = 1e-5,
+                     equilibrate: bool = True, pad_rows: int = 0):
+    """The plain PyTorch version of the kernels' loop (same iteration,
+    batched tensor ops). H is (B, nz, nz) or one (nz, nz). pad_rows appends
+    K4's reference padding: rows G = 0, h = 1e6 (s = 1e6, z = 1), outside mu.
+    Returns (x (B, nz), mu (B,), (s, z))."""
     Bsz, nz = g.shape
     mI = G.shape[0]
+    if pad_rows:
+        G = F_.pad(G, (0, 0, 0, pad_rows))
+        h = F_.pad(h, (0, pad_rows), value=BIG)
     x = torch.zeros(Bsz, nz, dtype=g.dtype, device=g.device)
     if warm is None:
         s = torch.clamp(h, min=1.0)
@@ -79,6 +107,9 @@ def mehrotra_h_plain(G, H, g, h, iters: int, tau: float = 0.995,
         z = torch.clamp(warm[1], min=warm_eps)
     eye = RIDGE * torch.eye(nz, dtype=g.dtype, device=g.device)
     Gt = G.T
+
+    def mean(v):
+        return v[:, :mI].sum(dim=1) / mI
 
     def ratio_min(v, dv):
         ratio = torch.where(dv < 0, -v / torch.where(dv < 0, dv, -1.0), BIG)
@@ -90,7 +121,10 @@ def mehrotra_h_plain(G, H, g, h, iters: int, tau: float = 0.995,
         s_safe = torch.clamp(s, min=1e-25)
         d = torch.clamp(z / s_safe, max=d_cap)
         M = (Gt * d[:, None, :]) @ G + H + eye
-        sc = torch.rsqrt(torch.clamp(torch.diagonal(M, dim1=1, dim2=2), min=1e-30))
+        if equilibrate:
+            sc = torch.rsqrt(torch.clamp(torch.diagonal(M, dim1=1, dim2=2), min=1e-30))
+        else:
+            sc = torch.ones_like(x)
         L = _cholesky_floor(M * sc[:, :, None] * sc[:, None, :])
 
         def kkt(rc):
@@ -102,11 +136,11 @@ def mehrotra_h_plain(G, H, g, h, iters: int, tau: float = 0.995,
             Gdx = dx @ Gt
             return dx, -rp - Gdx, d * (rp + Gdx) - rc / s_safe
 
-        mu = (s * z).sum(dim=1) / mI
+        mu = mean(s * z)
         _, dsa, dza = kkt(s * z)
         ap = torch.clamp(ratio_min(s, dsa), max=1.0)[:, None]
         ad = torch.clamp(ratio_min(z, dza), max=1.0)[:, None]
-        mu_aff = ((s + ap * dsa) * (z + ad * dza)).sum(dim=1) / mI
+        mu_aff = mean((s + ap * dsa) * (z + ad * dza))
         sr = mu_aff / torch.clamp(mu, min=1e-25)
         sigma = sr * sr * sr
         dx, ds, dz = kkt(s * z + dsa * dza - (sigma * mu)[:, None])
@@ -115,7 +149,13 @@ def mehrotra_h_plain(G, H, g, h, iters: int, tau: float = 0.995,
         x = x + ap * dx
         s = s + ap * ds
         z = z + ad * dz
-    return x, (s * z).sum(dim=1) / mI, (s, z)
+    return x, mean(s * z), (s[:, :mI], z[:, :mI])
+
+
+def _check_sizes(name: str, nz: int, mI: int) -> None:
+    if nz > NZ_MAX or mI > MI_MAX:
+        raise ValueError(f"the {name} kernel takes nz <= {NZ_MAX} and mI <= {MI_MAX} "
+                         f"(got nz={nz}, mI={mI})")
 
 
 def mehrotra_h(G, H, g, h, iters: int, tau: float = 0.995, d_cap: float = 1e6,
@@ -131,9 +171,7 @@ def mehrotra_h(G, H, g, h, iters: int, tau: float = 0.995, d_cap: float = 1e6,
     dev = g.device
     Bsz, nz = g.shape
     mI = G.shape[0]
-    if nz > 32 or mI > 1024:
-        raise ValueError(f"the mehrotra_h kernel takes nz <= 32 and mI <= 1024 "
-                         f"(got nz={nz}, mI={mI})")
+    _check_sizes("mehrotra_h", nz, mI)
     check("G", G, (mI, nz), dev)
     check("H", H, (Bsz, nz, nz), dev)
     check("g", g, (Bsz, nz), dev)
@@ -203,3 +241,65 @@ class QPSolverH:
         cold start bit for bit (max(s, eps) and max(z, eps) are identities)."""
         h = h.to(torch.float32)
         return torch.clamp(h, min=1.0), torch.ones_like(h)
+
+
+def mehrotra_plain(G, H, g, h, iters: int, tau: float = 0.995):
+    """K4's plain version: the shared-H solve (d capped at 1e7, no
+    equilibration, the reference's padded rows) and the reference's
+    converged flag, mu < 2e-4 (1 + mu mI) and max |G x + s - h| < 2e-3 over
+    the real rows. H is (nz, nz). Returns (x (B, nz), conv (B,) bool,
+    mu (B,))."""
+    mI = G.shape[0]
+    # the reference pads mI to a multiple of 128
+    x, mu, (s, z) = mehrotra_h_plain(G, H, g, h, iters, tau, SHARED_D_CAP,
+                                     equilibrate=False, pad_rows=-mI % 128)
+    rp = x @ G.T + s - h
+    conv = (mu < 2e-4 * (1.0 + mu * mI)) & (rp.abs().amax(dim=1) < 2e-3)
+    return x, conv, mu
+
+
+def mehrotra(G, H, g, h, iters: int, tau: float = 0.995):
+    """Route one shared-H batched solve: CUDA tensors launch K4, CPU tensors
+    take mehrotra_plain. Returns (x, conv, mu)."""
+    if g.device.type == "cpu":
+        return mehrotra_plain(G, H, g, h, iters, tau)
+    if g.device.type != "cuda":
+        raise ValueError(f"mehrotra runs on cuda or cpu, not {g.device}")
+    dev = g.device
+    Bsz, nz = g.shape
+    mI = G.shape[0]
+    _check_sizes("mehrotra", nz, mI)
+    check("G", G, (mI, nz), dev)
+    check("H", H, (nz, nz), dev)
+    check("g", g, (Bsz, nz), dev)
+    check("h", h, (Bsz, mI), dev)
+    x = torch.empty(Bsz, nz, dtype=torch.float32, device=dev)
+    conv = torch.empty(Bsz, dtype=torch.bool, device=dev)
+    mu = torch.empty(Bsz, dtype=torch.float32, device=dev)
+    KERNEL_SHARED.launch(dev, ptr(G), ptr(H), ptr(g), ptr(h), ptr(x), ptr(conv), ptr(mu),
+                         I(Bsz), I(mI), I(nz), I(iters), F(tau), F(SHARED_D_CAP))
+    return x, conv, mu
+
+
+class QPSolver:
+    """The shared-H Mehrotra QP solver (the reference's
+    build_pallas_qp_solver): H (nz, nz) and G (mI, nz) fixed at build time,
+    `solve(g (B, nz), h (B, mI))` -> (x (B, nz), converged (B,)), float32,
+    any batch size (no lane tile). plain=True runs the plain version on the
+    solver's device."""
+
+    def __init__(self, H, G, iters: int = 20, tau: float = 0.995, device=None,
+                 plain: bool = False):
+        dev = resolve_device(device)
+        self.H = torch.as_tensor(np.asarray(H, np.float32), device=dev)
+        self.G = torch.as_tensor(np.asarray(G, np.float32), device=dev)
+        _check_sizes("mehrotra", *self.G.shape[::-1])
+        self.iters, self.tau = int(iters), float(tau)
+        self.device = dev
+        self.plain = plain
+
+    def solve(self, g, h):
+        g = torch.as_tensor(g, dtype=torch.float32, device=self.device).contiguous()
+        h = torch.as_tensor(h, dtype=torch.float32, device=self.device).contiguous()
+        fn = mehrotra_plain if self.plain else mehrotra
+        return fn(self.G, self.H, g, h, self.iters, self.tau)[:2]

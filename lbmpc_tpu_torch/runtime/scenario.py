@@ -108,12 +108,14 @@ def build_fleet_episode(name_or_cfg, ipm_iters=None,
     histories batch-first. As in the reference, the route decides the rest:
     qp_kernel="xla" (the default: ops/ipm_fused on the K5 kernels) keeps the
     solver's Armijo ladder unless `alphas` is given and ignores qp_warm;
-    qp_kernel="pallas_full" (K1 + K2) takes the ladder ((1,), (1, .5, .25))
-    and qp_warm. backend="hybrid" adds the compacted per-step repair (1 GN x
-    8 IPM, seeded at the fused iterate) with repair_backend "fused" on the
-    kernel route and "vmapped" (not ported yet: it raises) otherwise, unless
-    `repair_backend` names one. warm_chain threads the QP kernel's interior
-    state across steps (needs qp_warm on the kernel route). plain=True runs
+    the kernel routes — "pallas" (plain GN phase + K2), "pallas_full" (K1 +
+    K2) and "pallas_mono" (K3, which ignores qp_warm) — take the ladder
+    ((1,), (1, .5, .25)) and qp_warm. backend="hybrid" adds the compacted
+    per-step repair (1 GN x 8 IPM, seeded at the fused iterate) with
+    repair_backend "fused" on "pallas_full" and "vmapped" (not ported yet:
+    it raises) otherwise, unless `repair_backend` names one. warm_chain
+    threads K2's interior state across steps (needs qp_warm on "pallas" or
+    "pallas_full"). plain=True runs
     the kernels' plain versions on the same device — the reference route for
     comparisons on the card.
     """
@@ -126,9 +128,9 @@ def build_fleet_episode(name_or_cfg, ipm_iters=None,
         raise ValueError("fused fleet episodes support fmincon-family LBMPC only")
     if backend not in ("fused", "hybrid"):
         raise ValueError(f"backend={backend!r}")
-    if warm_chain and not (qp_warm and qp_kernel == "pallas_full"):
-        raise ValueError("warm_chain needs qp_warm=True and the kernel route "
-                         "(qp_kernel='pallas_full')")
+    if warm_chain and not (qp_warm and qp_kernel in ("pallas", "pallas_full")):
+        raise ValueError("warm_chain needs qp_warm=True and a kernel route with "
+                         "K2 (qp_kernel='pallas' or 'pallas_full')")
     sc = build_scenario(cfg)
     dev = resolve_device(device)
     p = cfg.plant

@@ -122,6 +122,30 @@ def test_default_fleet_matches_reference_default_fleet(monkeypatch):
     assert np.median(d) < 1e-6 and d.max() < 1e-3, (np.median(d), d.max())
 
 
+def test_mono_fleet_matches_reference_xla_fleet(monkeypatch):
+    """The pallas_mono fleet (K3's plain version) against the reference's
+    fleet on its XLA route with the same ladder and IPM schedule (its XLA
+    Cholesky, no Pallas): the same converged steps, the one-solve class in
+    the history."""
+    monkeypatch.setenv("LBMPC_CHOL", "xla")
+    from lbmpc_tpu.runtime.scenario import build_fleet_episode
+
+    ladder = ((1.0,), (1.0, 0.5, 0.25))
+    _, ref_run = build_fleet_episode(_small(make_preset), alphas=ladder)
+    ref = ref_run(jnp.asarray(DX0, jnp.float32))
+    monkeypatch.delenv("LBMPC_CHOL")
+    _, run = t_scenario.build_fleet_episode(_small(lt.make_preset), qp_kernel="pallas_mono",
+                                            device="cpu")
+    s = run.solver
+    assert (s.qp_kernel, s.alphas, s.ipm_sched) == ("pallas_mono", ladder, (16, 16))
+    res = run(DX0)
+    assert float(res.solver_converged.float().mean()) == 1.0
+    np.testing.assert_array_equal(res.solver_converged.numpy(),
+                                  np.asarray(ref.solver_converged))
+    d = np.abs(res.sys_history.numpy() - np.asarray(ref.sys_history))
+    assert np.median(d) < 1e-6 and d.max() < 1e-3, (np.median(d), d.max())
+
+
 def test_fleet_rejects_what_is_not_ported():
     """What stays unported raises: the hybrid fleet's default repair on the
     xla route (vmapped), the warm chain without qp_warm or off the kernel

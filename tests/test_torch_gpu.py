@@ -1,8 +1,8 @@
-"""PyTorch port on the card: K1 (gn_phase), K2 (mehrotra_h) and K5a/b/c
-(chol) against their plain versions on the same CUDA tensors, and both
-routes of the fused solve against their plain routes. Marked `gpu`; without
-CUDA every test skips. On a machine with an NVIDIA GPU and nvcc (no JAX
-needed):
+"""PyTorch port on the card: K1 (gn_phase), K2 (mehrotra_h), K3
+(gn_mehrotra), K4 (mehrotra) and K5a/b/c (chol) against their plain versions
+on the same CUDA tensors, and the routes of the fused solve against their
+plain routes. Marked `gpu`; without CUDA every test skips. On a machine with
+an NVIDIA GPU and nvcc (no JAX needed):
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 """
@@ -16,9 +16,11 @@ import torch
 import lbmpc_tpu_torch as lt
 from lbmpc_tpu_torch.controllers.sqp_fused import make_lbmpc_solver_fused
 from lbmpc_tpu_torch.oracle import DataWindow
-from lbmpc_tpu_torch.ops import chol_kernel, gn_kernel, qp_kernel
+from lbmpc_tpu_torch.ops import chol_kernel, gn_kernel, mono_kernel, qp_kernel
 from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
-from lbmpc_tpu_torch.ops.qp_kernel import QPSolverH, mehrotra_h, mehrotra_h_plain
+from lbmpc_tpu_torch.ops.mono_kernel import MonoPhase
+from lbmpc_tpu_torch.ops.qp_kernel import (QPSolver, QPSolverH, mehrotra_h,
+                                           mehrotra_h_plain, mehrotra_plain, step_rhs)
 from lbmpc_tpu_torch.runtime.scenario import build_scenario
 
 pytestmark = pytest.mark.gpu
@@ -158,3 +160,112 @@ def test_fused_solve_xla_route_matches_plain(cuda, bench):
     zp, cp = sp(dx, win, z0)
     assert torch.equal(zk, zp) and torch.equal(ck, cp)
     assert ck.float().mean().item() >= 0.99
+
+
+def test_qp_kernel_matches_plain_at_16_iterations(cuda, bench):
+    """K2 cold at 16 IPM iterations: a lane outside the K2 class has a QP
+    that stalled (mu >= 1e-6) on one side (chip_smoke.qp_step_gates)."""
+    sc, kw = bench
+    gn = GNPhase(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, device=cuda, **kw)
+    z, dx, win = _inputs(64, sc.nz, cuda, seed=5)
+    _, H, g = gn(z, dx, win)
+    G = torch.as_tensor(sc.qp.G, dtype=torch.float32, device=cuda)
+    h = step_rhs(*(torch.as_tensor(a, dtype=torch.float32, device=cuda)
+                   for a in (sc.qp.h0, sc.qp.Hp)), G, dx, z)
+    x, mu, _ = mehrotra_h(G, H, g, h, 16)
+    xp, mup, _ = mehrotra_h_plain(G, H, g, h, 16)
+    dd = (x - xp).abs()
+    assert dd.median().item() < 1e-6
+    off = (dd.amax(dim=1) > 5e-2) | ((mu - mup).abs() > 1e-3)
+    assert not bool((off & (mu < 1e-6) & (mup < 1e-6)).any())
+
+
+@pytest.mark.parametrize("iters", [8, 16])
+def test_mono_kernel_matches_plain_and_k1_k2(cuda, bench, iters):
+    """K3 against its plain version with chip_smoke's gates, and against K1
+    then K2 (cold) on the same inputs, which run the same device code: equal
+    bit for bit."""
+    sc, kw = bench
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    G, h0, Hp = t(sc.qp.G), t(sc.qp.h0), t(sc.qp.Hp)
+    gn = GNPhase(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, device=cuda, **kw)
+    mono = MonoPhase(gn, G, h0, Hp, iters)
+    z, dx, win = _inputs(128, sc.nz, cuda, seed=4)
+    n0 = mono_kernel.KERNEL.launches
+    e, d, mu, g = mono(z, dx, win)
+    assert mono_kernel.KERNEL.launches == n0 + 1
+    ep, dp, mup, gp = mono.plain(z, dx, win)
+    e1, H1, g1 = gn(z, dx, win)
+    hmax = H1.abs().max().item()              # the K1 class
+    assert (e - ep).abs().max().item() <= 1e-5 * hmax
+    assert (g - gp).abs().max().item() <= 1e-5 * hmax
+    dd = (d - dp).abs()
+    assert dd.median().item() < 1e-6
+    # a lane outside the K2 class has a QP that stalled (mu >= 1e-6) on one
+    # side: float32 Mehrotra chaos after ~12 iterations, not a fault
+    off = (dd.amax(dim=1) > 5e-2) | ((mu - mup).abs() > 1e-3)
+    assert not bool((off & (mu < 1e-6) & (mup < 1e-6)).any())
+    if iters == 8:
+        assert not bool(off.any())
+    x2, mu2, _ = mehrotra_h(G, H1, g1, step_rhs(h0, Hp, G, dx, z), iters)
+    assert torch.equal(e, e1) and torch.equal(g, g1)
+    assert torch.equal(d, x2) and torch.equal(mu, mu2)
+
+
+def test_shared_qp_kernel_matches_plain(cuda):
+    """K4 on the N=20 LMPC QP (806 rows) against its plain version with
+    chip_smoke's gates: K4 is as close to the float64 optimum (the plain
+    version at 60 iterations) as the float32 plain version, and converges
+    as often, within 5 % of the lanes here."""
+    from lbmpc_tpu_torch.controllers.condensed import build_fmincon_lmpc
+    from lbmpc_tpu_torch.models.mgcm import mgcm_dlti
+    from lbmpc_tpu_torch.sets.terminal import get_cons
+    from lbmpc_tpu_torch.synthesis import mat_ocp
+
+    Ad, Bd, C, _ = mgcm_dlti()
+    ocp = mat_ocp(Ad, Bd, C)
+    cs = get_cons(x_min=[0.0, 1.1875, 0.1547, -20.0], x_max=[1.0, 2.1875, 2.1547, 20.0],
+                  u_min=0.1547, u_max=2.1547, x_wp=[0.5, 1.6875, 1.1547, 0.0], u_wp=1.1547,
+                  A=Ad, B=Bd, K=ocp.Ks, LAMBDA=ocp.LAMBDA, PSI=ocp.PSI,
+                  LAMBDA_0=ocp.LAMBDA_0, PSI_0=ocp.PSI_0)
+    qp = build_fmincon_lmpc(Ad, Bd, ocp.Ks, ocp.Q, ocp.R, ocp.P, ocp.T, ocp.LAMBDA,
+                            ocp.PSI, cs, 20)
+    rng = np.random.default_rng(1)          # tests/test_pallas_ipm.py's lanes
+    dxs = np.array([-0.35, -0.4, 0.0, 0.0]) + 0.01 * rng.standard_normal((128, 4))
+    g, h = (qp.Gg @ dxs.T).T + qp.g0, qp.h0 + (qp.Hp @ dxs.T).T
+    n0 = qp_kernel.KERNEL_SHARED.launches
+    k4 = QPSolver(qp.H, qp.G, iters=20, device=cuda)
+    x, conv = k4.solve(g, h)
+    assert qp_kernel.KERNEL_SHARED.launches == n0 + 1
+    xp, cp = QPSolver(qp.H, qp.G, iters=20, device=cuda, plain=True).solve(g, h)
+    assert (x - xp).abs().median().item() < 1e-6
+    x64 = mehrotra_plain(k4.G.double(), k4.H.double(), k4.G.new_tensor(g).double(),
+                         k4.G.new_tensor(h).double(), 60)[0]
+    far, far_p = (int((~((a.double() - x64).abs().amax(dim=1) <= 5e-2)).sum()) for a in (x, xp))
+    assert far <= far_p + 0.05 * len(g)
+    assert conv.float().mean().item() >= cp.float().mean().item() - 0.05
+
+
+def test_fused_solve_mono_and_pallas_routes(cuda, bench):
+    """pallas_mono: 2 K3 launches a solve and the same z as pallas_full
+    without qp_warm (same device code, same QP rhs); pallas: 2 K2 launches
+    and no K1."""
+    sc, kw = bench
+    args = (sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w)
+    common = dict(family="fmincon", sqp_iters=2, ipm_iters=(16, 8),
+                  alphas=((1.0,), (1.0, 0.5, 0.25)), device=cuda, **kw)
+    _, dx, win = _inputs(256, sc.nz, cuda, seed=7)
+    z0 = torch.zeros(256, sc.nz, device=cuda)
+    counts = lambda: (gn_kernel.KERNEL.launches, qp_kernel.KERNEL.launches,
+                      mono_kernel.KERNEL.launches)
+    n0 = counts()
+    zm, cm = make_lbmpc_solver_fused(*args, qp_kernel="pallas_mono", **common)(dx, win, z0)
+    assert [b - a for a, b in zip(n0, counts())] == [0, 0, 2]
+    zf, cf = make_lbmpc_solver_fused(*args, qp_kernel="pallas_full", **common)(dx, win, z0)
+    assert torch.equal(zm, zf) and torch.equal(cm, cf)
+    n0 = counts()
+    zk, ck = make_lbmpc_solver_fused(*args, qp_kernel="pallas", **common)(dx, win, z0)
+    assert [b - a for a, b in zip(n0, counts())] == [0, 2, 0]
+    d = (zk - zf).abs()
+    assert d.median().item() < 1e-6 and d[:, 0].max().item() < 5e-2
+    assert ck.float().mean().item() >= 0.99 and cm.float().mean().item() >= 0.99

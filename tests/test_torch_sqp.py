@@ -210,13 +210,21 @@ def test_xla_route_hybrid_matches_reference(setup, monkeypatch):
 
 def test_unported_routes_raise(setup, monkeypatch):
     """What stays unported raises ValueError: the pallas and pallas_mono
-    routes, the vmapped repair and the ws-seeded repair, jac_mode="jacfwd",
-    the kernel route beyond the m=1 fmincon family, and the LBMPC_CHOL_BLOCKED
-    switch (K6) at n_p >= 32."""
+    routes above nz 32 (K2, K3), pallas_mono for the casadi family, the
+    vmapped repair and the ws-seeded repair, jac_mode="jacfwd", the kernel
+    route beyond the m=1 fmincon family, and the LBMPC_CHOL_BLOCKED switch
+    (K6) at n_p >= 32."""
     cfg, sc, qp, w, ts, data, kw = setup
+    ts40 = t_build(dataclasses.replace(
+        ts.cfg, ocp=dataclasses.replace(ts.cfg.ocp, N=40)))
+    assert ts40.nz == 41
     for route in ("pallas", "pallas_mono"):
+        _port(ts, qp_kernel=route, **kw)      # nz=13: ported
         with pytest.raises(ValueError, match="not ported"):
-            _port(ts, qp_kernel=route, **kw)
+            _port(ts40, qp_kernel=route, **kw)
+    _port(ts, qp_kernel="pallas", **{**kw, "family": "casadi"})
+    with pytest.raises(ValueError, match="not ported"):
+        _port(ts, qp_kernel="pallas_mono", **{**kw, "family": "casadi"})
     with pytest.raises(ValueError, match="not ported"):
         _port(ts, t_sqp.make_lbmpc_solver_hybrid, repair_backend="vmapped",
               repair_warm="fused", **kw)
@@ -235,7 +243,5 @@ def test_unported_routes_raise(setup, monkeypatch):
         s.raw_qpwarm(dx.float(), wins.to(torch.float32), z0, None)
     monkeypatch.setenv("LBMPC_CHOL_BLOCKED", "1")
     _port(ts, qp_kernel="xla", **kw)          # nz=13 -> n_p=16: no K6 there
-    ts40 = t_build(dataclasses.replace(
-        ts.cfg, ocp=dataclasses.replace(ts.cfg.ocp, N=40)))
     with pytest.raises(ValueError, match="not ported"):
         _port(ts40, qp_kernel="xla", **kw)
