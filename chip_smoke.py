@@ -16,7 +16,14 @@ counts set to 0 just before it and read just after:
   the pallas route (the plain GN phase + K2): the fused solves at batch
   2048, the pallas_mono fused fleet and the pallas warm-chain fused fleet at
   the cohort; and the shared-H QP solver (K4 mehrotra) on the N=20 LMPC QP
-  at the cohort.
+  at the cohort;
+- the routes above nz 32: the slab-blocked Cholesky (K6a
+  chol_factor_solve_blocked, K6b chol_solve_blocked) behind
+  LBMPC_CHOL_BLOCKED=1 on the DMS flagship's xla route, bit for bit equal to
+  K5; the DMS flagship on pallas_full (K1w gn_wide + K2w mehrotra_h_wide),
+  pallas (the plain GN phase + K2w) and the pallas_full warm chain at batch
+  1024; and the uncut LBMPC_N40 (N=40, nz=41) warm-chain hybrid fleet on
+  pallas_full at the cohort.
 It times the kernels, their plain versions, the library yardsticks, the
 solves and the fleet steps with CUDA events.
 
@@ -51,7 +58,7 @@ REPAIR_K = 24
 XLA_SCHED = (16, 8)          # the xla route's IPM schedule (bench_dms_flagship.py:118)
 DMS_BATCH = 1024
 K4_OPT_ITERS = 60            # the float64 solve K4 and its plain version are held to
-LAST_PHASE = 17
+LAST_PHASE = 24
 
 
 def log(msg: str) -> None:
@@ -223,6 +230,19 @@ def run_phases(dev, card: str, kind: str, args) -> int:
         kernels[k.name] = dict(name=k.name, route="cuda",
                                source="lbmpc_tpu_torch/csrc/chol.cu",
                                replaces=f"lbmpc_tpu/ops/pallas_chol.py:{line}")
+    # the wide kernels replace the same TPU kernels over the rest of their
+    # domain; K6 the blocked branch of the chol pallas_calls
+    kernels["gn_wide"] = dict(name="gn_wide", route="cuda",
+                              source="lbmpc_tpu_torch/csrc/gn_wide.cu",
+                              replaces="lbmpc_tpu/ops/pallas_gn.py:587", library_ms=None)
+    kernels["mehrotra_h_wide"] = dict(name="mehrotra_h_wide", route="cuda",
+                                      source="lbmpc_tpu_torch/csrc/mehrotra_h_wide.cu",
+                                      replaces="lbmpc_tpu/ops/pallas_ipm.py:567",
+                                      library_ms=None)
+    for k, line in zip(chol_kernel.BLOCKED_KERNELS, (175, 267)):
+        kernels[k.name] = dict(name=k.name, route="cuda",
+                               source="lbmpc_tpu_torch/csrc/chol_blocked.cu",
+                               replaces=f"lbmpc_tpu/ops/pallas_chol.py:{line}")
 
     # ---- phase 1: card, versions, build -------------------------------------
     log("phase 1: card, versions, kernel build")
@@ -233,7 +253,8 @@ def run_phases(dev, card: str, kind: str, args) -> int:
         f"precision={torch.get_float32_matmul_precision()}")
     t0 = time.time()
     all_kernels = (gn_kernel.KERNEL, qp_kernel.KERNEL, mono_kernel.KERNEL,
-                   qp_kernel.KERNEL_SHARED, *chol_kernel.KERNELS)
+                   qp_kernel.KERNEL_SHARED, *chol_kernel.KERNELS, gn_kernel.KERNEL_WIDE,
+                   qp_kernel.KERNEL_WIDE, *chol_kernel.BLOCKED_KERNELS)
     logs = _cuda.build_all(all_kernels, verbose=True)
     for name, text in logs.items():
         for line in text.splitlines():
@@ -452,6 +473,9 @@ def run_phases(dev, card: str, kind: str, args) -> int:
     if args.stop_after >= 12:
         kernel_route_phases(dev, tag, args, kernels, cfg, sc, gn, dx, win, dx_init)
         log(f"  wall time so far {time.time() - t_start:.1f} s")
+    if args.stop_after >= 17:
+        wide_phases(dev, tag, args, kernels, dx_init)
+        log(f"  wall time so far {time.time() - t_start:.1f} s")
     return finish(card, kind, kernels, args)
 
 
@@ -516,25 +540,40 @@ def finite_max(a) -> float:
     return a[torch.isfinite(a)].abs().max().item()
 
 
-def chol_counts() -> dict:
+def chol_kernels() -> tuple:
+    """K5a, K5b, K5c, K6a, K6b."""
     from lbmpc_tpu_torch.ops import chol_kernel
 
-    return {k.name: k.launches for k in chol_kernel.KERNELS}
+    return (*chol_kernel.KERNELS, *chol_kernel.BLOCKED_KERNELS)
+
+
+def route_kernels() -> tuple:
+    """The kernels of the GN-phase and Mehrotra routes: K1, K2, K3, K4 and the
+    wide K1w, K2w, each counted apart."""
+    from lbmpc_tpu_torch.ops import gn_kernel, mono_kernel, qp_kernel
+
+    return (gn_kernel.KERNEL, qp_kernel.KERNEL, mono_kernel.KERNEL, qp_kernel.KERNEL_SHARED,
+            gn_kernel.KERNEL_WIDE, qp_kernel.KERNEL_WIDE)
+
+
+def chol_counts() -> dict:
+    return {k.name: k.launches for k in chol_kernels()}
 
 
 def route_counts() -> dict:
-    """Launches of the kernels of the GN-phase and Mehrotra routes."""
-    from lbmpc_tpu_torch.ops import gn_kernel, mono_kernel, qp_kernel
+    return {k.name: k.launches for k in route_kernels()}
 
-    return {k.name: k.launches for k in (gn_kernel.KERNEL, qp_kernel.KERNEL,
-                                         mono_kernel.KERNEL, qp_kernel.KERNEL_SHARED)}
+
+def chol_none() -> dict:
+    return {k.name: 0 for k in chol_kernels()}
+
+
+def route_none() -> dict:
+    return {k.name: 0 for k in route_kernels()}
 
 
 def zero_counts() -> None:
-    from lbmpc_tpu_torch.ops import chol_kernel, gn_kernel, mono_kernel, qp_kernel
-
-    for k in (gn_kernel.KERNEL, qp_kernel.KERNEL, mono_kernel.KERNEL,
-              qp_kernel.KERNEL_SHARED, *chol_kernel.KERNELS):
+    for k in (*route_kernels(), *chol_kernels()):
         k.launches = 0
 
 
@@ -643,7 +682,7 @@ def xla_phases(dev, tag: str, args, kernels: dict, cfg, sc, dx, win, dx_init) ->
     zp, cpv = sp(dx, win, z0)
     log(f"  launches per solve {per}")
     solve_gates("fmincon xla solve", zk, ckv, zp, cpv)
-    require(per == {"chol_factor_solve": 24, "chol_solve": 0, "chol_resolve": 24},
+    require(per == dict(chol_none(), chol_factor_solve=24, chol_resolve=24),
             "fmincon xla solve: K5a = K5c = 24 launches per solve, K5b = 0")
     if args.stop_after < 9:
         return
@@ -660,7 +699,7 @@ def xla_phases(dev, tag: str, args, kernels: dict, cfg, sc, dx, win, dx_init) ->
     dzp, dcp = dp(ddx, dwin, dz0)
     log(f"  launches per solve {per}")
     solve_gates("DMS xla solve", dzk, dck, dzp, dcp)
-    require(per == {"chol_factor_solve": 24, "chol_solve": 0, "chol_resolve": 24},
+    require(per == dict(chol_none(), chol_factor_solve=24, chol_resolve=24),
             "DMS xla solve: K5a = K5c = 24 launches per solve, K5b = 0")
     os.environ["LBMPC_CHOL_STORE"] = "0"
     try:
@@ -676,7 +715,7 @@ def xla_phases(dev, tag: str, args, kernels: dict, cfg, sc, dx, win, dx_init) ->
     dd = (dzn - dzk).abs().max().item()
     log(f"  LBMPC_CHOL_STORE=0: launches {per}; max|z - z_store|={dd:.3e} "
         f"(bit-equal: {bool(torch.equal(dzn, dzk))}) conv={dcn.float().mean().item():.6f}")
-    require(per == {"chol_factor_solve": 0, "chol_solve": 48, "chol_resolve": 0},
+    require(per == dict(chol_none(), chol_solve=48),
             "LBMPC_CHOL_STORE=0: K5b = 48 launches per solve, K5a = K5c = 0")
     require(dd <= 1e-6 * (1.0 + dzk.abs().max().item()),
             "LBMPC_CHOL_STORE=0: z equals the store route within float32 roundoff")
@@ -706,8 +745,7 @@ def xla_phases(dev, tag: str, args, kernels: dict, cfg, sc, dx, win, dx_init) ->
         f"conv={conv:.6f} launches {per} {tag}")
     require(tuple(sysH.shape) == (COHORT, STEPS + 1, 5)
             and bool(torch.isfinite(sysH).all()), "fleet history finite, (B, T+1, 5)")
-    require(per == {"chol_factor_solve": STEPS * 24, "chol_solve": 0,
-                    "chol_resolve": STEPS * 24},
+    require(per == dict(chol_none(), chol_factor_solve=STEPS * 24, chol_resolve=STEPS * 24),
             f"K5a and K5c launched {STEPS * 24} times each on the main path, K5b 0")
     require(conv >= 0.99, "default fleet conv >= 0.99")
     res_p = run_xp(dx_init)                  # same cohort: same matmul shapes
@@ -818,6 +856,38 @@ def qp_step_gates(name: str, dk, muk, dp, mup, strict: bool) -> tuple:
     return dl[fin].max().item(), (held.max().item() if held.numel() else 0.0)
 
 
+def f64_gates(name: str, dk, muk, dp, mup, d64) -> tuple:
+    """A QP step where the K2 class cannot hold: above nz 32 the plain
+    version's own median distance from the float64 solve is near 1e-6 on the
+    DMS QP, and at 16 iterations float32 Mehrotra stalls (mu >= 1e-6) on a
+    third of the N40 lanes or more. So the kernel is held, as K4 is, to the
+    plain version in float64 on the same inputs: its median distance from it
+    at most 1.5 times the float32 plain version's (+1e-8), its share of lanes
+    beyond 5e-2 of it at most 0.5 pp above the plain version's, and the
+    stalled shares within 2 pp. The K2-class numbers are logged beside.
+    Returns (max |d| between kernel and plain over lanes finite on both
+    sides, the same over the lanes not stalled on either side)."""
+    dd = (dk - dp).abs()
+    dl = dd.amax(dim=1)
+    fin = dl.isfinite()
+    ek, ep = ((a.double() - d64).abs() for a in (dk, dp))
+    mk, mp = ek.median().item(), ep.median().item()
+    fk, fp = ((e.amax(dim=1) > 5e-2).float().mean().item() for e in (ek, ep))
+    stalled = ~((muk < 1e-6) & (mup < 1e-6))
+    sk, sp = (~(muk < 1e-6)).float().mean().item(), (~(mup < 1e-6)).float().mean().item()
+    log(f"  {name}: K2 class |dd| median={dd[fin].median().item():.3e} "
+        f"max={dl[fin].max().item():.3e}, lanes beyond 5e-2 {int((~(dl <= 5e-2)).sum())}; "
+        f"from the float64 plain version: |d| median kernel {mk:.3e} plain {mp:.3e}, lanes "
+        f"beyond 5e-2 kernel {fk:.4f} plain {fp:.4f}; stalled share {sk:.4f} / {sp:.4f}")
+    require(mk <= 1.5 * mp + 1e-8, f"{name}: median distance from the float64 solve at most "
+            "1.5x the plain version's")
+    require(fk <= fp + 0.005 and abs(sk - sp) <= 0.02,
+            f"{name}: lanes beyond 5e-2 of the float64 solve at most 0.5 pp above the plain "
+            "version's, stalled shares within 2 pp")
+    held = dl[~stalled]
+    return dl[fin].max().item(), (held.max().item() if held.numel() else 0.0)
+
+
 def torch_equal(a, b) -> bool:
     import torch
 
@@ -845,6 +915,37 @@ def route_gates(name: str, zk, ck, zp, cp) -> float:
     return dz.max().item()
 
 
+def anchored_route_gates(name: str, zk, ck, zp, cp, za) -> float:
+    """A kernel route's solve against its plain route where route_gates'
+    median cannot hold: on the DMS flagship two float32 computations of the
+    16-iteration first QP end ~1e-5 apart in the median (its lanes stall),
+    however they round. So the kernel route is held to an independent
+    computation of the same solve, the xla route on K5: its median distance
+    from it at most 1.5 times the plain route's (+1e-8) and at most 2 % more
+    of its lanes beyond 5e-2 of it (two float32 computations of the warm
+    chain's 2-iteration QP put 4.4 % and 5.5 % of the lanes there); and, as
+    route_gates holds, the applied
+    control c_0 within 5e-2 of the plain route on every lane, conv >= 0.99
+    and within 0.5 pp of it. Logs route_gates' numbers beside."""
+    dz = (zk - zp).abs()
+    ek, ep = (zk - za).abs(), (zp - za).abs()
+    far = lambda e: (~(e.amax(dim=1) <= 5e-2)).float().mean().item()
+    fk, fp = ck.float().mean().item(), cp.float().mean().item()
+    log(f"  {name}: vs its plain route |dz| median={dz.median().item():.3e} "
+        f"max={dz.max().item():.3e} c_0 max={dz[:, 0].max().item():.3e}, lanes beyond 5e-2 "
+        f"{int((~(dz.amax(dim=1) <= 5e-2)).sum())}; from the xla route |dz| median kernel "
+        f"{ek.median().item():.3e} plain {ep.median().item():.3e}, lanes beyond 5e-2 "
+        f"{far(ek):.4f} / {far(ep):.4f}; conv {fk:.6f} / {fp:.6f}")
+    require(bool(zk.isfinite().all()), f"{name}: solve finite")
+    require(ek.median().item() <= 1.5 * ep.median().item() + 1e-8
+            and far(ek) <= far(ep) + 0.02,
+            f"{name}: as close to the xla route as its plain route (median within 1.5x, "
+            "lanes beyond 5e-2 within 2 %)")
+    require(dz[:, 0].max().item() < 5e-2, f"{name}: c_0 within 5e-2 of the plain route")
+    require(fk >= 0.99 and abs(fk - fp) <= 0.005, f"{name}: conv >= 0.99, within 0.5 pp")
+    return dz.max().item()
+
+
 def kernel_route_phases(dev, tag: str, args, kernels: dict, cfg, sc, gn, dx, win,
                         dx_init) -> None:
     """Phases 12-16: the pallas_mono route (K3), the pallas route (the plain
@@ -867,7 +968,7 @@ def kernel_route_phases(dev, tag: str, args, kernels: dict, cfg, sc, gn, dx, win
     route = lambda qk, sqp_iters=2, **extra: make_lbmpc_solver_fused(
         qp, sc.A, sc.B, sc.ocp.Ks, sc.w, qp_kernel=qk, sqp_iters=sqp_iters, **kw, **extra)
     z0 = torch.zeros(BATCH, nz, dtype=torch.float32, device=dev)
-    none = {"gn_phase": 0, "mehrotra_h": 0, "gn_mehrotra": 0, "mehrotra": 0}
+    none = route_none()
 
     # ---- phase 12: K3 against its plain version and against K1 -> K2 -----------
     log(f"phase 12: K3 gn_mehrotra vs plain and vs K1 -> K2 cold, batch {BATCH}, "
@@ -1054,6 +1155,327 @@ def kernel_route_phases(dev, tag: str, args, kernels: dict, cfg, sc, gn, dx, win
                                bound_by=b4[1])
     log(f"  bound K3 16 iters {b3[16][0]:.4f} ms ({b3[16][1]}), 8 iters {b3[8][0]:.4f} ms "
         f"({b3[8][1]}); K4 {b4[0]:.4f} ms ({b4[1]}) {tag}")
+
+
+def wide_phases(dev, tag: str, args, kernels: dict, dx_init) -> None:
+    """Phases 17-23: the kernel routes above nz 32 — K6a/K6b (the slab-blocked
+    Cholesky behind LBMPC_CHOL_BLOCKED=1), K1w (gn_wide) and K2w
+    (mehrotra_h_wide) — on the DMS flagship and the uncut LBMPC_N40."""
+    import os
+
+    import torch
+
+    import lbmpc_tpu_torch as lt
+    from lbmpc_tpu_torch.controllers.sqp_fused import make_lbmpc_solver_fused
+    from lbmpc_tpu_torch.ops import chol_kernel as ck
+    from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
+    from lbmpc_tpu_torch.ops.qp_kernel import mehrotra_h, mehrotra_h_plain, step_rhs
+    from lbmpc_tpu_torch.runtime.scenario import build_fleet_episode, build_scenario
+
+    f32 = torch.float32
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    shapes = {}
+    for name in ("DMS_LBMPC_q100", "LBMPC_N40"):
+        c = lt.make_preset(name)
+        c = dataclasses.replace(c, solver=dataclasses.replace(c.solver, sqp_iters=2,
+                                                              dtype="float32"))
+        s = build_scenario(c)
+        shapes[c.family] = (c, s, dict(family=c.family, delta=c.plant.ts,
+                                       bandwidth=c.oracle.bandwidth, ridge=c.oracle.ridge,
+                                       dx_ref=np.asarray(c.dx_ref)))
+    dcfg, ds, dkw = shapes["casadi"]
+    ncfg, ns, nkw = shapes["fmincon"]
+    log(f"wide shapes: DMS flagship N={ds.qp.N} nz={ds.nz} G={ds.qp.G.shape} batch {DMS_BATCH}; "
+        f"LBMPC_N40 uncut N={ns.qp.N} nz={ns.nz} G={ns.qp.G.shape} cohort {COHORT}")
+    rng = np.random.default_rng(3)
+    _, dwin, _ = bench_inputs(rng, DMS_BATCH, ds.nz, dev)
+    x0 = np.asarray(dcfg.x_init_abs) - np.asarray(dcfg.plant.x_wp)
+    ddx = f(x0 + 0.01 * rng.standard_normal((DMS_BATCH, 4)))
+    dz0 = torch.zeros(DMS_BATCH, ds.nz, dtype=f32, device=dev)
+    ndx, nwin, _ = bench_inputs(np.random.default_rng(6), COHORT, ns.nz, dev)
+    nz0 = torch.zeros(COHORT, ns.nz, dtype=f32, device=dev)
+    dms = lambda **extra: make_lbmpc_solver_fused(
+        ds.qp, ds.A, ds.B, ds.ocp.Ks, ds.w, sqp_iters=2, alphas=LADDER, device=dev,
+        **{**dict(dkw, ipm_iters=XLA_SCHED), **extra})
+
+    def with_env(env: dict, build):
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            return build()
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    del os.environ[k]
+                else:
+                    os.environ[k] = v
+
+    # ---- phase 17: K6a / K6b against K5a / K5b ---------------------------------
+    log("phase 17: K6 chol_blocked vs K5 and vs plain (bit for bit), M from real xla-route "
+        "solves (first and last IPM iteration, equilibrated)")
+    cases = {}
+    with CholRecorder() as rec:
+        dms()(ddx, dwin, dz0)
+    cases[f"n={ds.nz} B={DMS_BATCH}"] = (rec.first, rec.last)
+    with CholRecorder() as rec:
+        make_lbmpc_solver_fused(ns.qp, ns.A, ns.B, ns.ocp.Ks, ns.w, sqp_iters=2,
+                                ipm_iters=XLA_SCHED, alphas=LADDER, device=dev,
+                                **nkw)(ndx[:BATCH], nwin.index(torch.arange(BATCH, device=dev)),
+                                       nz0[:BATCH])
+    cases[f"n={ns.nz} B={BATCH}"] = (rec.first, rec.last)
+    torch.cuda.synchronize()
+    k6_err = {k.name: 0.0 for k in ck.BLOCKED_KERNELS}
+    for shape, pairs in cases.items():
+        for it, (M, b) in zip(("first", "last"), pairs):
+            Lb, xb = ck.chol_factor_solve_blocked(M, b)
+            xsb = ck.chol_solve_blocked(M, b)
+            L, x = ck.chol_factor_solve(M, b)
+            xs = ck.chol_solve(M, b)
+            Lp, xp = ck.chol_factor_solve_blocked(M, b, plain=True)
+            torch.cuda.synchronize()
+            e = (mismatch(Lb, L), mismatch(xb, x), mismatch(xsb, xs))
+            log(f"  {shape} {it} iteration: K6a vs K5a L {e[0]:.3e} x {e[1]:.3e}; "
+                f"K6b vs K5b x {e[2]:.3e}; vs the plain version L {mismatch(Lb, Lp):.3e} "
+                f"x {mismatch(xb, xp):.3e}; max|x|={finite_max(x):.4g}")
+            require(torch_equal(Lb, L) and torch_equal(xb, x),
+                    f"K6a equals K5a bit for bit (L and x) at {shape}, {it} iteration")
+            require(torch_equal(xsb, xs), f"K6b equals K5b bit for bit at {shape}, {it} iteration")
+            require(torch_equal(Lb, Lp) and torch_equal(xb, xp) and torch_equal(xsb, xp),
+                    f"K6a and K6b equal their plain version bit for bit at {shape}, {it} "
+                    "iteration")
+            k6_err["chol_factor_solve_blocked"] = max(k6_err["chol_factor_solve_blocked"],
+                                                      mismatch(Lb, Lp), mismatch(xb, xp))
+            k6_err["chol_solve_blocked"] = max(k6_err["chol_solve_blocked"], mismatch(xsb, xp))
+    for k, v in k6_err.items():
+        kernels[k]["max_abs_err"] = v
+    if args.stop_after < 18:
+        return
+
+    # ---- phase 18: the DMS xla solve with LBMPC_CHOL_BLOCKED=1 ------------------
+    log(f"phase 18: DMS flagship on the xla route with LBMPC_CHOL_BLOCKED=1, batch "
+        f"{DMS_BATCH}, against the switch off; then LBMPC_CHOL_STORE=0")
+    d_off = dms()
+    d_on = with_env({"LBMPC_CHOL_BLOCKED": "1"}, dms)
+    d_on_ns = with_env({"LBMPC_CHOL_BLOCKED": "1", "LBMPC_CHOL_STORE": "0"}, dms)
+    zo, co = d_off(ddx, dwin, dz0)
+    torch.cuda.synchronize()
+    zero_counts()
+    zb_, cb_ = d_on(ddx, dwin, dz0)
+    torch.cuda.synchronize()
+    per = chol_counts()
+    log(f"  switch on: launches {per}; max|z - z_off|={mismatch(zb_, zo):.3e} conv "
+        f"{cb_.float().mean().item():.6f} / {co.float().mean().item():.6f}")
+    require(torch_equal(zb_, zo) and torch_equal(cb_, co),
+            "DMS xla solve with LBMPC_CHOL_BLOCKED=1 equals it without, bit for bit (z, conv)")
+    require(per == dict(chol_none(), chol_factor_solve_blocked=24, chol_resolve=24),
+            "LBMPC_CHOL_BLOCKED=1: 24 K6a + 24 K5c per solve, no K5a")
+    kernels["chol_factor_solve_blocked"]["launches"] = per["chol_factor_solve_blocked"]
+    zero_counts()
+    zn_, cn_ = d_on_ns(ddx, dwin, dz0)
+    torch.cuda.synchronize()
+    per = chol_counts()
+    log(f"  switch on, LBMPC_CHOL_STORE=0: launches {per}; max|z - z_off|="
+        f"{mismatch(zn_, zo):.3e}")
+    require(per == dict(chol_none(), chol_solve_blocked=48),
+            "LBMPC_CHOL_BLOCKED=1 with LBMPC_CHOL_STORE=0: 48 K6b per solve, nothing else")
+    require(torch_equal(zn_, zo) and torch_equal(cn_, co),
+            "LBMPC_CHOL_STORE=0 on K6b equals the K5 store route bit for bit (z, conv)")
+    kernels["chol_solve_blocked"]["launches"] = per["chol_solve_blocked"]
+    xla_conv = co.float().mean().item()
+    if args.stop_after < 19:
+        return
+
+    # ---- phase 19: K1w against its plain version ---------------------------------
+    log("phase 19: K1w gn_wide vs plain at the DMS and the uncut N40 shapes")
+    gns = {"casadi": GNPhase(ds.qp, ds.A, ds.B, ds.ocp.Ks, ds.w, device=dev, **dkw),
+           "fmincon": GNPhase(ns.qp, ns.A, ns.B, ns.ocp.Ks, ns.w, device=dev, **nkw)}
+    gin = {"casadi": (dz0, ddx, dwin), "fmincon": (nz0, ndx, nwin)}
+    k1w = {}
+    err = 0.0
+    for fam, gn in gns.items():
+        require(gn.wide and not gn.narrow, f"{fam}: GNPhase routes to K1w")
+        zero_counts()
+        e_k, H_k, g_k = gn(*gin[fam])
+        torch.cuda.synchronize()
+        per = route_counts()
+        e_p, H_p, g_p = gn.plain(*gin[fam])
+        hmax = H_p.abs().max().item()
+        errs = [(a - b).abs().max().item() for a, b in ((e_k, e_p), (H_k, H_p), (g_k, g_p))]
+        log(f"  {fam} B={e_k.shape[0]}: max|H|={hmax:.6g} max err e={errs[0]:.3e} "
+            f"H={errs[1]:.3e} g={errs[2]:.3e} (relative to max|H|: {max(errs) / hmax:.3e}); "
+            f"launches {per}")
+        require(all(np.isfinite(errs)) and max(errs) <= 1e-5 * hmax,
+                f"K1w e, H, g within 1e-5 * max|H| of the plain version ({fam})")
+        require(torch_equal(H_k, H_k.transpose(1, 2)), f"K1w H exactly symmetric ({fam})")
+        require(per == dict(route_none(), gn_wide=1), f"K1w launched once, nothing else ({fam})")
+        err = max(err, max(errs))
+        k1w[fam] = (H_k, g_k)
+    kernels["gn_wide"]["max_abs_err"] = err
+    if args.stop_after < 20:
+        return
+
+    # ---- phase 20: K2w against its plain version ---------------------------------
+    log("phase 20: K2w mehrotra_h_wide vs plain on the QPs built from K1w's H and g")
+    k2w_err = k2w_held = 0.0
+    qps = {}
+    for fam, (c, s, _) in shapes.items():
+        zz, dd, _ = gin[fam]
+        G = f(s.qp.G)
+        h = step_rhs(f(s.qp.h0), f(s.qp.Hp), G, dd, zz)
+        qps[fam] = (G, *k1w[fam], h)
+    for fam, it in (("casadi", 8), ("casadi", 16), ("fmincon", 8), ("fmincon", 16)):
+        G, H, g, h = qps[fam]
+        zero_counts()
+        x, mu, st = mehrotra_h(G, H, g, h, it, want_state=True)
+        torch.cuda.synchronize()
+        per = route_counts()
+        xp, mup, _ = mehrotra_h_plain(G, H, g, h, it)
+        x64 = mehrotra_h_plain(G.double(), H.double(), g.double(), h.double(), it)[0]
+        require(per == dict(route_none(), mehrotra_h_wide=1),
+                f"K2w launched once, nothing else ({fam}, {it} iters)")
+        name = f"K2w vs plain ({fam}, {it} iters)"
+        if fam == "fmincon" and it == 8:
+            d_all, d_held = qp_step_gates(name, x, mu, xp, mup, True)
+        else:
+            d_all, d_held = f64_gates(name, x, mu, xp, mup, x64)
+        k2w_err, k2w_held = max(k2w_err, d_all), max(k2w_held, d_held)
+        xc, muc, _ = mehrotra_h(G, H, g, h, it, warm=(torch.clamp(h, min=1.0),
+                                                      torch.ones_like(h)))
+        require(torch_equal(xc, x) and torch_equal(muc, mu),
+                f"K2w cold_state warm-in equals the cold solve bit for bit ({fam}, {it} iters)")
+        if it == 8:
+            xw, muw, _ = mehrotra_h(G, H, g, h, 2, warm=st)
+            xwp, muwp, _ = mehrotra_h_plain(G, H, g, h, 2, warm=st)
+            st64 = tuple(a.double() for a in st)
+            f64_gates(f"K2w vs plain ({fam}, 2 iters warm from K2w's 8)", xw, muw, xwp, muwp,
+                      mehrotra_h_plain(G.double(), H.double(), g.double(), h.double(), 2,
+                                       warm=st64)[0])
+    kernels["mehrotra_h_wide"].update(max_abs_err=k2w_err, max_abs_err_held=k2w_held)
+    if args.stop_after < 21:
+        return
+
+    # ---- phase 21: the DMS flagship on the kernel routes --------------------------
+    log(f"phase 21: DMS flagship fused SQP at batch {DMS_BATCH} on pallas_full, pallas "
+        "(ipm (16, 8)) and the pallas_full warm chain (ipm (16, 2), qp_warm)")
+    routes = {"pallas_full": dict(qp_kernel="pallas_full"),
+              "pallas": dict(qp_kernel="pallas"),
+              "pallas_full warm": dict(qp_kernel="pallas_full", ipm_iters=(16, 2),
+                                       qp_warm=True)}
+    want = {"pallas_full": dict(route_none(), gn_wide=2, mehrotra_h_wide=2),
+            "pallas": dict(route_none(), mehrotra_h_wide=2),
+            "pallas_full warm": dict(route_none(), gn_wide=2, mehrotra_h_wide=2)}
+    dsolvers = {}
+    for name, extra in routes.items():
+        sk, sp = dms(**extra), dms(plain=True, **extra)
+        dsolvers[name] = (sk, sp)
+        torch.cuda.synchronize()
+        zero_counts()
+        zk, ckv = sk(ddx, dwin, dz0)
+        torch.cuda.synchronize()
+        per = route_counts()
+        zp, cpv = sp(ddx, dwin, dz0)
+        log(f"  {name}: launches {per}; conv kernel {ckv.float().mean().item():.6f}, plain "
+            f"route {cpv.float().mean().item():.6f}, xla route {xla_conv:.6f}")
+        anchored_route_gates(f"DMS {name}", zk, ckv, zp, cpv, zo)
+        require(per == want[name], f"DMS {name}: launches {want[name]}")
+    if args.stop_after < 22:
+        return
+
+    # ---- phase 22: the uncut LBMPC_N40 warm-chain hybrid fleet ---------------------
+    log(f"phase 22: uncut LBMPC_N40 warm-chain hybrid fleet on pallas_full, cohort {COHORT}, "
+        f"{STEPS} steps (this slice's main path)")
+    fcfg = dataclasses.replace(ncfg, iterations=STEPS)
+    fleet_kw = dict(backend="hybrid", ipm_iters=IPM_SCHED, sqp_iters=2, qp_warm=True,
+                    warm_chain=True, qp_kernel="pallas_full", device=dev)
+    _, run_k = build_fleet_episode(fcfg, **fleet_kw)
+    _, run_p = build_fleet_episode(fcfg, plain=True, **fleet_kw)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.time()
+    res = run_k(dx_init)
+    torch.cuda.synchronize()
+    fleet_s = time.time() - t0
+    per = route_counts()
+    conv_steps = res.solver_converged.float().mean(dim=0)
+    sysH = res.sys_history
+    log(f"  {fleet_s * 1e3 / STEPS:.3f} ms/step (host clock, first run, incl. warm-up) "
+        f"launches {per} {tag}")
+    log("  conv per step: " + " ".join(f"{v:.6f}" for v in conv_steps.tolist()))
+    require(tuple(sysH.shape) == (COHORT, STEPS + 1, 5) and bool(torch.isfinite(sysH).all()),
+            "N40 fleet history finite, (B, T+1, 5)")
+    require(conv_steps.min().item() >= 0.99, "N40 fleet conv >= 0.99 every step")
+    require(per["gn_wide"] > 0 and per["mehrotra_h_wide"] > 0
+            and per == dict(route_none(), gn_wide=per["gn_wide"],
+                            mehrotra_h_wide=per["mehrotra_h_wide"]),
+            "N40 fleet launches K1w and K2w only")
+    for k in ("gn_wide", "mehrotra_h_wide"):
+        kernels[k]["launches"] = per[k]
+    res_p = run_p(dx_init[:256])
+    d = (sysH[:256] - res_p.sys_history).abs()
+    log(f"  first 256 lanes vs plain route: |d sys_history| median={d.median().item():.3e} "
+        f"max={d.max().item():.3e}; plain conv="
+        f"{res_p.solver_converged.float().mean().item():.6f}")
+    require(d.median().item() < 1e-6 and d.max().item() < 5e-2,
+            "N40 fleet sys_history vs the plain route: median < 1e-6, max < 5e-2")
+    if args.stop_after < 23:
+        return
+
+    # ---- phase 23: timings -----------------------------------------------------------
+    log("phase 23: K1w / K2w / K6 timings and the wide solves and fleet")
+    t = {}
+    for fam, gn in gns.items():
+        t[f"k1w_{fam}"] = cuda_ms(lambda: gn(*gin[fam]))
+        t[f"k1w_{fam}_plain"] = cuda_ms(lambda: gn.plain(*gin[fam]), reps=3)
+    for fam in ("casadi", "fmincon"):
+        G, H, g, h = qps[fam]
+        st = mehrotra_h(G, H, g, h, 8, want_state=True)[2]
+        for it in (16, 8):
+            t[f"k2w_{fam}_{it}"] = cuda_ms(lambda: mehrotra_h(G, H, g, h, it, want_state=True),
+                                           reps=3)
+            t[f"k2w_{fam}_{it}_plain"] = cuda_ms(lambda: mehrotra_h_plain(G, H, g, h, it),
+                                                 reps=2, warmup=1)
+        t[f"k2w_{fam}_2"] = cuda_ms(lambda: mehrotra_h(G, H, g, h, 2, warm=st), reps=5)
+    M, b = cases[f"n={ds.nz} B={DMS_BATCH}"][1]
+    lib = lambda: torch.cholesky_solve(b[..., None], torch.linalg.cholesky_ex(M)[0])
+    chol_t = {"chol_factor_solve_blocked": (lambda: ck.chol_factor_solve_blocked(M, b),
+                                            lambda: ck.chol_factor_solve_blocked(M, b, plain=True)),
+              "chol_solve_blocked": (lambda: ck.chol_solve_blocked(M, b),
+                                     lambda: ck.chol_solve_blocked(M, b, plain=True))}
+    t["k5a_dms"] = cuda_ms(lambda: ck.chol_factor_solve(M, b))
+    t["k5b_dms"] = cuda_ms(lambda: ck.chol_solve(M, b))
+    for name, (fk, fp) in chol_t.items():
+        ms, pms, lms = cuda_ms(fk), cuda_ms(fp, reps=3), cuda_ms(lib, reps=5)
+        bd, bd_by = bound_ms(*chol_work(name.replace("_blocked", ""), DMS_BATCH, ds.nz))
+        kernels[name].update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bd, bound_by=bd_by)
+        log(f"  time {name} n={ds.nz} B={DMS_BATCH}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"library {lms:.4f} ms, bound {bd:.4f} ms ({bd_by}) {tag}")
+    for name, (sk, sp) in dsolvers.items():
+        t[f"dms_{name.replace(' ', '_')}_solve"] = cuda_ms(lambda: sk(ddx, dwin, dz0), reps=3,
+                                                           warmup=1)
+    t["dms_xla_blocked_solve"] = cuda_ms(lambda: d_on(ddx, dwin, dz0), reps=2, warmup=1)
+    t["dms_xla_solve"] = cuda_ms(lambda: d_off(ddx, dwin, dz0), reps=2, warmup=1)
+    t0 = time.time()
+    run_k(dx_init)
+    torch.cuda.synchronize()
+    t["n40_fleet_step"] = (time.time() - t0) * 1e3 / STEPS
+    for k, v in t.items():
+        log(f"  time {k} = {v:.4f} ms {tag}")
+    # the bounds at the main path's shapes: K1w and K2w at the N40 cohort
+    ne = (ns.qp.N - 2) * 5 + 8
+    mI_n = ns.qp.G.shape[0]
+    b1 = bound_ms(*gn_work(COHORT, ns.qp.N, Q, ne, ns.nz, gns["fmincon"].cst.numel()))
+    b2 = bound_ms(*qp_work(COHORT, mI_n, ns.nz, IPM_SCHED[0], False, True))
+    kernels["gn_wide"].update(ms=t["k1w_fmincon"], plain_ms=t["k1w_fmincon_plain"],
+                              bound_ms=b1[0], bound_by=b1[1])
+    kernels["mehrotra_h_wide"].update(ms=t["k2w_fmincon_8"], plain_ms=t["k2w_fmincon_8_plain"],
+                                      bound_ms=b2[0], bound_by=b2[1])
+    dne = ds.qp.N * 5 + 8
+    bd1 = bound_ms(*gn_work(DMS_BATCH, ds.qp.N, Q, dne, ds.nz, gns["casadi"].cst.numel()))
+    bd2 = {it: bound_ms(*qp_work(DMS_BATCH, ds.qp.G.shape[0], ds.nz, it, False, True))
+           for it in (16, 8)}
+    log(f"  bound K1w N40 cohort {b1[0]:.4f} ms ({b1[1]}), DMS {bd1[0]:.4f} ms ({bd1[1]}); "
+        f"K2w N40 8 iters {b2[0]:.4f} ms ({b2[1]}), DMS 16 iters {bd2[16][0]:.4f} ms, "
+        f"8 iters {bd2[8][0]:.4f} ms ({bd2[8][1]}) {tag}")
 
 
 def profile_fleet(cfg, fleet_kw: dict, dx_init, tag: str) -> None:

@@ -10,11 +10,13 @@ reference casts it:
   KKT solves run on the K5 Cholesky kernels. The fmincon and casadi
   families, any nz up to 128;
 - `qp_kernel="pallas"`: the same plain GN phase feeding K2 (ops/qp_kernel:
-  the Mehrotra QP with a Hessian per lane), one launch per GN iteration.
-  Any family at nz <= 32;
-- `qp_kernel="pallas_full"`: two launches per GN iteration — K1
-  (ops/gn_kernel.GNPhase: residual, H and g for every lane) and K2, fed
-  K1's H as it is. The m=1 fmincon family at nz <= 32;
+  the Mehrotra QP with a Hessian per lane; K2w above nz 32), one launch per
+  GN iteration. Any family at nz <= 128 and mI <= 1024;
+- `qp_kernel="pallas_full"`: two launches per GN iteration — K1 or K1w
+  (ops/gn_kernel.GNPhase: residual, H and g for every lane) and K2 or K2w,
+  fed that H as it is. The m=1 fmincon and casadi families at nz <= 128
+  and mI <= 1024 (K1 and K2 at nz <= 32 for fmincon, the wide kernels
+  otherwise);
 - `qp_kernel="pallas_mono"`: one launch per GN iteration — K3
   (ops/mono_kernel: K1's GN body and a cold K2 loop in one block per lane).
   The m=1 fmincon family at nz <= 32; qp_warm is ignored, as in the
@@ -38,7 +40,8 @@ from lbmpc_tpu_torch.oracle import DataWindow
 from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
 from lbmpc_tpu_torch.ops.ipm_fused import build_fused_qp_solver
 from lbmpc_tpu_torch.ops.mono_kernel import MonoPhase
-from lbmpc_tpu_torch.ops.qp_kernel import MI_MAX, NZ_MAX, QPSolverH, step_rhs
+from lbmpc_tpu_torch.ops.qp_kernel import (MI_MAX, NZ_MAX, NZ_MAX_WIDE, QPSolverH,
+                                           step_rhs)
 
 _ALPHAS = (1.0, 0.5, 0.25, 0.125, 0.0625)
 _F32 = torch.float32
@@ -58,17 +61,30 @@ def _check_route(qp_kernel: str, family: str, qp: CondensedQP,
         raise ValueError(f"qp_kernel={qp_kernel!r}: the port has 'xla', 'pallas', "
                          "'pallas_full' and 'pallas_mono'")
     mI = qp.G.shape[0]
-    if qp_kernel == "pallas":
-        if qp.nz > NZ_MAX or mI > MI_MAX:
-            raise ValueError(
-                f"qp_kernel='pallas' (K2) is ported at nz <= {NZ_MAX} and mI <= "
-                f"{MI_MAX}; nz={qp.nz}, mI={mI} is not ported yet: use qp_kernel='xla'")
-        return
-    if family != "fmincon" or qp.m != 1 or qp.nz > NZ_MAX or mI > MI_MAX:
+    if qp.nz > NZ_MAX_WIDE or mI > MI_MAX:
         raise ValueError(
-            f"qp_kernel={qp_kernel!r} is ported for the m=1 fmincon family at "
-            f"nz <= {NZ_MAX} (K1, K2, K3); family={family!r} at nz={qp.nz} is not "
-            "ported yet: use qp_kernel='xla'")
+            f"qp_kernel={qp_kernel!r}: the QP kernels (K2, K2w) take nz <= "
+            f"{NZ_MAX_WIDE} and mI <= {MI_MAX}, as the reference's; nz={qp.nz}, "
+            f"mI={mI}: use qp_kernel='xla'")
+    if qp_kernel == "pallas":
+        return
+    if qp.m != 1:
+        raise ValueError(f"qp_kernel={qp_kernel!r} covers the m=1 model (K1, K1w, "
+                         f"K3), as the reference's kernels; m={qp.m}")
+    if qp_kernel == "pallas_full":
+        return
+    if family == "casadi":
+        raise ValueError(
+            "qp_kernel='pallas_mono' for the casadi family is not ported: at the "
+            "DMS flagship's shape the reference's own fused kernel refuses to "
+            "launch (pallas_gn.py:177-205, scoped-VMEM need 59.3M at nz_p=104, "
+            "q_p=104, tile 128 exceeds its 60M grant budget); use "
+            "qp_kernel='pallas_full' or 'pallas'")
+    if qp.nz > NZ_MAX:
+        raise ValueError(
+            f"qp_kernel='pallas_mono' (K3) is ported for the fmincon family at "
+            f"nz <= {NZ_MAX}; nz={qp.nz} is not ported yet: use "
+            "qp_kernel='pallas_full' (K1w + K2w) or 'xla'")
 
 
 class FusedSolver:

@@ -9,20 +9,15 @@
 //       storing L (the refactor-per-solve route, LBMPC_CHOL_STORE=0);
 //   chol_resolve_launch       <- _resolve_call.kernel (K5c): the two
 //       triangular solves with a stored L (the Mehrotra corrector).
-// The factorization is the TPU kernel's column recurrence (_chol_cols):
-// column j is acc = M[:, j] - sum_{k<j} L[j, k] L[:, k] with the terms taken
-// in the order k = 0, 1, ..., j-1, L[j, j] = acc_j / sqrt(max(acc_j, 1e-30))
-// and L[i, j] = acc_i / sqrt(max(acc_j, 1e-30)) below it — the pivot floor
-// included. Here it runs right-looking in place: after column j is final,
-// every entry (i, k) of the trailing lower triangle subtracts L[i, j] L[k, j],
-// which gives each entry the same terms in the same order. The forward solve
-// is the TPU kernel's column sweep (_tri_lower); the back solve is the same
-// sweep on L' (its sums run in another order than _tri_upper_t /
-// _tri_upper_red: float32 roundoff). Every product, difference, quotient
-// and square root is rounded on its own (__fmul_rn, __fsub_rn, __fdiv_rn,
-// __fsqrt_rn: no fused multiply-add), in the order of the plain version
-// ops/chol_kernel.py, so the kernel reproduces it bit for bit and the IPM on
-// the card follows its plain route exactly, hard lanes included.
+// The factorization is the TPU kernel's column recurrence (_chol_cols), run
+// right-looking in place (chol_body.cuh factor_cols); the forward solve is
+// the TPU kernel's column sweep (_tri_lower), the back solve the same sweep
+// on L' (its sums run in another order than _tri_upper_t / _tri_upper_red:
+// float32 roundoff). Every operation is rounded on its own in the order of
+// the plain version ops/chol_kernel.py, so the kernel reproduces it bit for
+// bit and the IPM on the card follows its plain route exactly, hard lanes
+// included. The device code is chol_body.cuh's, which the slab-blocked K6
+// (chol_blocked.cu) shares.
 //
 // Layout: M, L (B, n, n) row-major, b and x (B, n), float32, contiguous.
 // L is written whole, lower triangle with the diagonal and zeros above, and
@@ -49,78 +44,22 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "chol_body.cuh"
 
-constexpr int kNMax = 128;
-constexpr float kPivotFloor = 1e-30f;
+namespace {
 
 template <bool kFactor, bool kStore>
 __global__ void chol_kernel(const float* __restrict__ Min, const float* __restrict__ b,
                             float* __restrict__ L_out, float* __restrict__ x_out, int n) {
   extern __shared__ float smem[];
-  float* A = smem;             // n * n: M, factored in place into L
-  float* col = A + n * n;      // n: column j of L
-  float* v = col + n;          // n: the running right-hand side
-  float* y = v + n;            // n: the forward solve's result
-  const int tid = threadIdx.x;
-  const int T = blockDim.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int nwarps = T >> 5;
-  const size_t lane_off = (size_t)blockIdx.x * n * n;
-
-  for (int e = tid; e < n * n; e += T) A[e] = Min[lane_off + e];
-  for (int i = tid; i < n; i += T) v[i] = b[(size_t)blockIdx.x * n + i];
-  __syncthreads();
-
-  if (kFactor) {
-    for (int j = 0; j < n; ++j) {
-      // the floor lets NaN through, as jnp.maximum and torch.clamp do
-      // (fmaxf would turn a NaN pivot into the floor)
-      const float acc = A[j * n + j];
-      const float djj = __fsqrt_rn(acc < kPivotFloor ? kPivotFloor : acc);
-      for (int i = j + tid; i < n; i += T) col[i] = __fdiv_rn(A[i * n + j], djj);
-      __syncthreads();
-      for (int i = j + tid; i < n; i += T) A[i * n + j] = col[i];
-      for (int i = j + 1 + warp; i < n; i += nwarps) {
-        const float lij = col[i];
-        float* row = A + i * n;
-        for (int k = j + 1 + lane; k <= i; k += 32)
-          row[k] = __fsub_rn(row[k], __fmul_rn(lij, col[k]));
-      }
-      __syncthreads();
-    }
-    if (kStore) {
-      for (int e = tid; e < n * n; e += T) {
-        const int i = e / n, k = e - i * n;
-        L_out[lane_off + e] = k <= i ? A[e] : 0.0f;
-      }
-    }
-  }
-
-  // forward: L y = b, column by column
-  for (int j = 0; j < n; ++j) {
-    const float yj = __fdiv_rn(v[j], A[j * n + j]);
-    for (int i = j + 1 + tid; i < n; i += T)
-      v[i] = __fsub_rn(v[i], __fmul_rn(A[i * n + j], yj));
-    if (tid == 0) y[j] = yj;
-    __syncthreads();
-  }
-  // back: L' x = y, column by column of L' (row j of L)
-  for (int j = n - 1; j >= 0; --j) {
-    const float xj = __fdiv_rn(y[j], A[j * n + j]);
-    for (int i = tid; i < j; i += T) y[i] = __fsub_rn(y[i], __fmul_rn(A[j * n + i], xj));
-    if (tid == 0) v[j] = xj;
-    __syncthreads();
-  }
-  for (int i = tid; i < n; i += T) x_out[(size_t)blockIdx.x * n + i] = v[i];
+  chol::lane<kFactor, kStore, false>(Min, b, L_out, x_out, n, smem);
 }
 
 template <bool kFactor, bool kStore>
 int launch(const float* M, const float* b, float* L, float* x, int B, int n, void* stream) {
-  if (n < 1 || n > kNMax || B < 0) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > chol::kNMax || B < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t smem = ((size_t)n * n + 3 * n) * sizeof(float);
+  const size_t smem = chol::lane_shared_bytes(n);
   if (smem > 48 * 1024) {
     const cudaError_t st = cudaFuncSetAttribute(
         chol_kernel<kFactor, kStore>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

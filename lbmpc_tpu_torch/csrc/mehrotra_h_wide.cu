@@ -1,0 +1,129 @@
+// mehrotra_h_wide.cu — a fixed-iteration Mehrotra predictor-corrector QP
+// with a Hessian per lane at 32 < nz <= 128, one thread block per lane (K2w).
+//
+// Replaces the TPU kernel lbmpc_tpu/ops/pallas_ipm.py,
+// build_pallas_qp_solver_h -> kernel/_kernel_body, over the part of its
+// domain that mehrotra_h.cu (K2: nz <= 32) does not take — the DMS
+// flagship's nz=101, G (1024, 101) and LBMPC_N40's nz=41, G (414, 41). For
+// each lane:
+//   min 1/2 x'H_b x + g_b'x  s.t.  G x <= h_b   (G shared by the batch)
+// by `iters` Mehrotra iterations with d capped at d_cap and Jacobi
+// equilibration (mehrotra_wide.cuh: K2's iteration, constants and order of
+// steps). Start: cold s = max(h, 1), z = 1; or warm s = max(s0, eps),
+// z = max(z0, eps) (the (B, mI) warm state is in G's row order) — K2's
+// wrapper contract, warm in and out included.
+//
+// What bounds it on an H100: operations. Each iteration assembles
+// G' diag(d) G over all mI rows: nz(nz+1)/2 unique entries times mI rows,
+// 5.2 M multiply-adds a lane at the DMS shape (10.5 MFLOP), against the
+// bytes of H, g, h in and x, mu (and s, z) out. This version computes the
+// whole square in its register tiles (twice the unique entries), and the
+// serial factorization and sweeps (n barriers a sweep) add their latency.
+//
+// Design: one 256-thread block per lane, G read from device memory (L2
+// resident, shared by every block), H and M in shared memory
+// (mehrotra_wide.cuh). The register tile's side is a template parameter,
+// the smallest of 3, 5, 7, 8 with 16 kT >= nz.
+
+#include <cuda_runtime.h>
+
+#include "mehrotra_wide.cuh"
+
+namespace {
+
+using namespace mehrotra_wide;
+
+template <int kT>
+__global__ void __launch_bounds__(kThreads, 2)
+mehrotra_h_wide_kernel(const float* __restrict__ G, const float* __restrict__ H,
+                       const float* __restrict__ g, const float* __restrict__ h,
+                       const float* __restrict__ s0, const float* __restrict__ z0,
+                       float* __restrict__ x_out, float* __restrict__ mu_out,
+                       float* __restrict__ s_out, float* __restrict__ z_out, int mI, int nz,
+                       int iters, float tau, float d_cap, float warm_eps) {
+  extern __shared__ float smem[];
+  const Shared sh = carve(smem, mI, nz);
+  const int tid = threadIdx.x;
+  const size_t b = blockIdx.x;
+  for (int i = tid; i < nz * nz; i += kThreads) sh.H[i] = H[b * nz * nz + i];
+  if (tid < nz) {
+    sh.g[tid] = g[b * nz + tid];
+    sh.x[tid] = 0.f;
+  }
+
+  float s[kRowsPerThread], z[kRowsPerThread], hr[kRowsPerThread];
+#pragma unroll
+  for (int t = 0; t < kRowsPerThread; ++t) {
+    const int r = tid + t * kThreads;
+    s[t] = z[t] = hr[t] = 0.f;
+    if (r < mI) {
+      hr[t] = h[b * mI + r];
+      if (s0 != nullptr) {
+        s[t] = fmaxf(s0[b * mI + r], warm_eps);
+        z[t] = fmaxf(z0[b * mI + r], warm_eps);
+      } else {
+        s[t] = fmaxf(hr[t], 1.f);
+        z[t] = 1.f;
+      }
+    }
+  }
+  __syncthreads();
+
+  solve<kT>(sh, G, mI, nz, iters, tau, d_cap, s, z, hr);
+
+  const float mu = mehrotra::block_mu(mI, s, z, sh.red);
+  if (s_out != nullptr) {
+#pragma unroll
+    for (int t = 0; t < kRowsPerThread; ++t) {
+      const int r = tid + t * kThreads;
+      if (r < mI) {
+        s_out[b * mI + r] = s[t];
+        z_out[b * mI + r] = z[t];
+      }
+    }
+  }
+  if (tid == 0) mu_out[b] = mu;
+  if (tid < nz) x_out[b * nz + tid] = sh.x[tid];
+}
+
+template <int kT>
+int launch(const float* G, const float* H, const float* g, const float* h, const float* s0,
+           const float* z0, float* x, float* mu, float* s_out, float* z_out, int B, int mI,
+           int nz, int iters, float tau, float d_cap, float warm_eps, void* stream) {
+  const size_t smem = shared_floats(mI, nz) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t st = cudaFuncSetAttribute(
+        mehrotra_h_wide_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (st != cudaSuccess) return (int)st;
+  }
+  mehrotra_h_wide_kernel<kT><<<B, kThreads, smem, (cudaStream_t)stream>>>(
+      G, H, g, h, s0, z0, x, mu, s_out, z_out, mI, nz, iters, tau, d_cap, warm_eps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int mehrotra_h_wide_launch(const float* G, const float* H, const float* g,
+                                      const float* h, const float* s0, const float* z0,
+                                      float* x, float* mu, float* s_out, float* z_out, int B,
+                                      int mI, int nz, int iters, float tau, float d_cap,
+                                      float warm_eps, void* stream) {
+  if (nz < kNzMin || nz > kNzMax || mI < 1 || mI > kMaxRows || B < 0 || iters < 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  if (nz <= 3 * kTile)
+    return launch<3>(G, H, g, h, s0, z0, x, mu, s_out, z_out, B, mI, nz, iters, tau, d_cap,
+                     warm_eps, stream);
+  if (nz <= 5 * kTile)
+    return launch<5>(G, H, g, h, s0, z0, x, mu, s_out, z_out, B, mI, nz, iters, tau, d_cap,
+                     warm_eps, stream);
+  if (nz <= 7 * kTile)
+    return launch<7>(G, H, g, h, s0, z0, x, mu, s_out, z_out, B, mI, nz, iters, tau, d_cap,
+                     warm_eps, stream);
+  return launch<8>(G, H, g, h, s0, z0, x, mu, s_out, z_out, B, mI, nz, iters, tau, d_cap,
+                   warm_eps, stream);
+}
+
+extern "C" const char* mehrotra_h_wide_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,12 +1,15 @@
-"""K5 — batched Cholesky factor + solve for the IPM's KKT normal matrices
-(csrc/chol.cu): K5a factors and solves and stores L, K5b factors and solves
-without storing L, K5c re-solves with a stored L.
+"""K5 and K6 — batched Cholesky factor + solve for the IPM's KKT normal
+matrices. K5 (csrc/chol.cu): K5a factors and solves and stores L, K5b
+factors and solves without storing L, K5c re-solves with a stored L. K6
+(csrc/chol_blocked.cu): K6a and K6b compute K5a's and K5b's function by a
+slab-blocked factorization, bit for bit the same.
 
 Port of lbmpc_tpu/ops/pallas_chol.py (chol_factor_solve, chol_solve,
-chol_resolve) with LBMPC_CHOL_BLOCKED unset; the blocked variants (K6) are
-not ported. Each wrapper routes by device: a CUDA tensor always launches its
-kernel, a CPU tensor takes the plain version below, and `plain=True` asks
-for the plain version on any device (the comparisons on the card).
+chol_resolve); LBMPC_CHOL_BLOCKED=1 selects the blocked kernels where the
+reference does (`blocked_switch`). Each wrapper routes by device: a CUDA
+tensor always launches its kernel, a CPU tensor takes the plain version
+below (K6's is K5's: the same function), and `plain=True` asks for the
+plain version on any device (the comparisons on the card).
 
 L is (B, n, n) row-major: its lower triangle with the diagonal, zeros above.
 K5a writes it and K5c reads it as it is. The reference's column-major
@@ -29,6 +32,10 @@ FACTOR_SOLVE = CudaKernel("chol_factor_solve", [P] * 4 + [I, I, P], source="chol
 SOLVE = CudaKernel("chol_solve", [P] * 3 + [I, I, P], source="chol")
 RESOLVE = CudaKernel("chol_resolve", [P] * 3 + [I, I, P], source="chol")
 KERNELS = (FACTOR_SOLVE, SOLVE, RESOLVE)
+FACTOR_SOLVE_BLOCKED = CudaKernel("chol_factor_solve_blocked", [P] * 4 + [I, I, P],
+                                  source="chol_blocked")
+SOLVE_BLOCKED = CudaKernel("chol_solve_blocked", [P] * 3 + [I, I, P], source="chol_blocked")
+BLOCKED_KERNELS = (FACTOR_SOLVE_BLOCKED, SOLVE_BLOCKED)
 N_MAX = 128          # csrc/chol.cu kNMax
 PIVOT_FLOOR = 1e-30  # sqrt(max(acc_jj, 1e-30)), pallas_chol.py:417
 
@@ -39,6 +46,13 @@ def factor_store_feasible() -> bool:
     only LBMPC_CHOL_STORE=0 forces the refactor route, as in the
     reference."""
     return os.environ.get("LBMPC_CHOL_STORE") != "0"
+
+
+def blocked_switch(n: int) -> bool:
+    """Whether the IPM factors n x n systems on K6 (slab-blocked) instead of
+    K5: LBMPC_CHOL_BLOCKED=1 at n_p = 8 ceil(n / 8) >= 32, as the reference
+    reads it (pallas_chol.py:138, :226). Read when a solver is built."""
+    return os.environ.get("LBMPC_CHOL_BLOCKED") == "1" and -(-n // 8) * 8 >= 32
 
 
 def cholesky_floor(M: torch.Tensor) -> torch.Tensor:
@@ -144,4 +158,29 @@ def chol_resolve(L, b, plain: bool = False):
     Bsz, n = _checked(L, b)
     x = torch.empty_like(b)
     RESOLVE.launch(dev, ptr(L), ptr(b), ptr(x), I(Bsz), I(n))
+    return x
+
+
+def chol_factor_solve_blocked(M, b, plain: bool = False):
+    """K6a: chol_factor_solve's function by the slab-blocked kernel: (L, x),
+    bit for bit K5a's. Its plain version is K5a's."""
+    dev = _device_of(M, plain)
+    if dev is None:
+        return chol_factor_solve_plain(M, b)
+    Bsz, n = _checked(M, b)
+    L = torch.empty_like(M)
+    x = torch.empty_like(b)
+    FACTOR_SOLVE_BLOCKED.launch(dev, ptr(M), ptr(b), ptr(L), ptr(x), I(Bsz), I(n))
+    return L, x
+
+
+def chol_solve_blocked(M, b, plain: bool = False):
+    """K6b: chol_solve's function by the slab-blocked kernel: x, bit for bit
+    K5b's. Its plain version is K5b's."""
+    dev = _device_of(M, plain)
+    if dev is None:
+        return chol_solve_plain(M, b)
+    Bsz, n = _checked(M, b)
+    x = torch.empty_like(b)
+    SOLVE_BLOCKED.launch(dev, ptr(M), ptr(b), ptr(x), I(Bsz), I(n))
     return x

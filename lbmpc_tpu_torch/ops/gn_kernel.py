@@ -1,12 +1,17 @@
-"""K1 — the Gauss-Newton phase: learned-rollout residual e, H = 2J'J + 1e-6 I
-and g = 2J'e for every lane, in one launch (csrc/gn_phase.cu).
+"""K1 and K1w — the Gauss-Newton phase: learned-rollout residual e,
+H = 2J'J + Hconst and g = 2J'e for every lane, in one launch.
 
-Port of lbmpc_tpu/ops/pallas_gn.py (build_pallas_gn_kernel, fmincon family).
-The wrapper routes by device: a CUDA tensor always launches the kernel; a
-CPU tensor takes the plain version, which builds J with
-controllers/lbmpc.make_residual_and_jac and forms the normal terms with
-matrix products. H comes out as (B, nz, nz), row-major and symmetric — the
-layout ops/qp_kernel.py's kernel reads without a copy.
+Port of lbmpc_tpu/ops/pallas_gn.py (build_pallas_gn_kernel) over its
+domain, the m=1 model with n=4 states and one theta, in two kernels:
+- K1 (csrc/gn_phase.cu, one warp per lane): the fmincon family at nz <= 32;
+- K1w (csrc/gn_wide.cu, one block per lane): every other shape up to
+  nz = 128, both families — the casadi DMS flagship (nz=101) and the
+  fmincon family above nz 32 (LBMPC_N40 uncut, nz=41).
+The wrapper routes by device: a CUDA tensor always launches a kernel (K1 or
+K1w by shape, or raises); a CPU tensor takes the plain version, which
+builds J with controllers/lbmpc.make_residual_and_jac and forms the normal
+terms with matrix products. H comes out as (B, nz, nz), row-major and
+symmetric — the layout ops/qp_kernel.py's kernels read without a copy.
 """
 
 from __future__ import annotations
@@ -21,16 +26,20 @@ from lbmpc_tpu_torch.oracle import DataWindow
 from lbmpc_tpu_torch.ops._cuda import I, P, CudaKernel, check, ptr
 
 KERNEL = CudaKernel("gn_phase", [P] * 9 + [I, I, I, P])
+KERNEL_WIDE = CudaKernel("gn_wide", [P] * 9 + [I, I, I, I, P])
+NZ_MAX, NZ_MAX_WIDE = 32, 128   # csrc/gn_body.cuh, csrc/gn_wide_body.cuh kNzMax
 
-# constant block offsets (csrc/gn_phase.cu enum)
+# constant block offsets (csrc/gn_body.cuh and gn_wide_body.cuh enums)
 _C_A, _C_B, _C_KS, _C_LQ, _C_LP, _C_LAM, _C_XSREF = 0, 16, 20, 24, 40, 56, 60
-_C_LR, _C_PSI, _C_SQRTT, _C_INVBW2, _C_RIDGE, _C_HCONST = 64, 65, 66, 67, 68, 72
+_C_LR, _C_PSI, _C_SQRTT, _C_INVBW2, _C_RIDGE, _C_SQD, _C_HCONST = (
+    64, 65, 66, 67, 68, 69, 72)
 _RIDGE_H = 1e-6
 
 
 class GNPhase:
-    """K1 for one condensed QP: holds the kernel's constant block and the
-    plain version's residual/Jacobian functions (float32, on `device`).
+    """K1 / K1w for one condensed QP: holds the kernels' constant block and
+    the plain version's residual/Jacobian functions (float32, on `device`).
+    `narrow` says K1 takes the shape, `wide` K1w; `kernel_ok` either.
 
     Calling it returns (e (B, ne), H (B, nz, nz), g (B, nz)) for
     z (B, nz), dx0 (B, n) and a window batched over the same lanes."""
@@ -49,12 +58,16 @@ class GNPhase:
         self._eye = _RIDGE_H * torch.eye(self.nz, dtype=torch.float32,
                                          device=self.device)
         nth = np.atleast_2d(np.asarray(w.LAMBDA)).shape[1]
-        self.kernel_ok = (family == "fmincon" and qp.n == 4 and qp.m == 1
-                          and nth == 1 and 3 <= qp.N and qp.nz <= 32)
+        model = (family in ("fmincon", "casadi") and qp.n == 4 and qp.m == 1
+                 and nth == 1 and qp.N >= (3 if family == "fmincon" else 1))
+        self.narrow = model and family == "fmincon" and qp.nz <= NZ_MAX
+        self.wide = model and not self.narrow and qp.nz <= NZ_MAX_WIDE
+        self.kernel_ok = self.narrow or self.wide
         if self.kernel_ok:
-            self.cst = self._constants(A, B, Ks, w, bandwidth, ridge, dx_ref)
+            self.cst = self._constants(A, B, Ks, w, delta, bandwidth, ridge, dx_ref)
 
-    def _constants(self, A, B, Ks, w, bandwidth, ridge, dx_ref) -> torch.Tensor:
+    def _constants(self, A, B, Ks, w, delta, bandwidth, ridge,
+                   dx_ref) -> torch.Tensor:
         nz, N = self.nz, self.N
         c = np.zeros(_C_HCONST + nz * nz)
         c[_C_A:_C_A + 16] = np.asarray(A, float).ravel()
@@ -71,10 +84,24 @@ class GNPhase:
         c[_C_SQRTT] = float(w.sqrtT)
         c[_C_INVBW2] = 1.0 / (bandwidth * bandwidth)
         c[_C_RIDGE] = ridge
-        # Hconst: the SQP's ridge and the constant rT rows' 2 J'J block
+        casadi = self.family == "casadi"
+        sqd = float(np.sqrt(delta)) if casadi else 1.0
+        c[_C_SQD] = sqd
+        # Hconst: the SQP's ridge and the constant rT rows' 2 J'J block; for
+        # casadi also the du rows', sqrt(delta) Lr (E_k - PSI_T), whose
+        # Jacobian does not depend on the lane (pallas_gn.py:118-125)
         JrT = np.zeros((4, nz))
         JrT[:, N] = w.sqrtT * LAM
-        c[_C_HCONST:] = (_RIDGE_H * np.eye(nz) + 2.0 * JrT.T @ JrT).ravel()
+        Hc = _RIDGE_H * np.eye(nz) + 2.0 * JrT.T @ JrT
+        if casadi:
+            Lr = float(np.asarray(w.Lr).ravel()[0])
+            PSI_T = np.zeros(nz)
+            PSI_T[N] = float(np.asarray(w.PSI).ravel()[0])
+            for k in range(N):
+                Jru = -sqd * Lr * PSI_T
+                Jru[k] += sqd * Lr
+                Hc += 2.0 * np.outer(Jru, Jru)
+        c[_C_HCONST:] = Hc.ravel()
         return torch.as_tensor(c, dtype=torch.float32, device=self.device)
 
     def plain(self, z, dx0, window: DataWindow):
@@ -94,8 +121,10 @@ class GNPhase:
 
     def _launch(self, z, dx0, window: DataWindow):
         if not self.kernel_ok:
-            raise ValueError("the gn_phase kernel covers the fmincon family "
-                             "with n=4, m=1, one theta and nz <= 32")
+            raise ValueError(
+                "the GN kernels cover n=4, m=1 and one theta: gn_phase (K1) the "
+                f"fmincon family at nz <= {NZ_MAX}, gn_wide (K1w) both families at "
+                f"nz <= {NZ_MAX_WIDE}; got family={self.family!r}, nz={self.nz}")
         dev = z.device
         Bsz = z.shape[0]
         q = window.X.shape[-2]
@@ -108,7 +137,10 @@ class GNPhase:
         e = torch.empty(Bsz, self.ne, dtype=torch.float32, device=dev)
         H = torch.empty(Bsz, self.nz, self.nz, dtype=torch.float32, device=dev)
         g = torch.empty(Bsz, self.nz, dtype=torch.float32, device=dev)
-        KERNEL.launch(dev, ptr(self.cst), ptr(z), ptr(dx0), ptr(window.X),
-                      ptr(window.Y), ptr(window.valid), ptr(e), ptr(H), ptr(g),
-                      I(Bsz), I(self.N), I(q))
+        args = (ptr(self.cst), ptr(z), ptr(dx0), ptr(window.X), ptr(window.Y),
+                ptr(window.valid), ptr(e), ptr(H), ptr(g), I(Bsz), I(self.N), I(q))
+        if self.narrow:
+            KERNEL.launch(dev, *args)
+        else:
+            KERNEL_WIDE.launch(dev, *args, I(int(self.family == "casadi")))
         return e, H, g

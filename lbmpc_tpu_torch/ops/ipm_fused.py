@@ -6,7 +6,10 @@ KKT normal matrices of the whole batch with a few matrix products that skip
 G's structural zeros (`_build_structured_assembly`), equilibrates them
 symmetrically, and solves them in ops/chol_kernel: K5a (factor, solve, store
 L) for the predictor and K5c (re-solve with L) for the corrector, or K5b
-twice when LBMPC_CHOL_STORE=0. The rest is batched torch. float32, with full
+twice when LBMPC_CHOL_STORE=0. LBMPC_CHOL_BLOCKED=1 puts the factorizations
+on the slab-blocked K6a / K6b at n_p = 8 ceil(nz / 8) >= 32, as in the
+reference (read when the solver is built); they equal K5a / K5b bit for
+bit, and K5c still re-solves. The rest is batched torch. float32, with full
 float32 matrix products (TF32 is off in the package).
 
 Differences from the reference:
@@ -14,9 +17,8 @@ Differences from the reference:
   Pallas grid of B // tile programs would skip a ragged tail; here every
   kernel runs one block per lane, so any B is solved as it is;
 - refine=True (f64 iterative refinement; off by default in the reference
-  and measured net-neutral there), LBMPC_CHOL=xla (the XLA Cholesky) and
-  LBMPC_CHOL_BLOCKED=1 (the slab-blocked K6 kernels) are not ported and
-  raise ValueError.
+  and measured net-neutral there) and LBMPC_CHOL=xla (the XLA Cholesky)
+  are not ported and raise ValueError.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ import numpy as np
 import torch
 
 from lbmpc_tpu_torch.device import resolve_device
-from lbmpc_tpu_torch.ops.chol_kernel import (chol_factor_solve, chol_resolve,
-                                             chol_solve, factor_store_feasible)
+from lbmpc_tpu_torch.ops.chol_kernel import (blocked_switch, chol_factor_solve,
+                                             chol_factor_solve_blocked, chol_resolve,
+                                             chol_solve, chol_solve_blocked,
+                                             factor_store_feasible)
 
 _F32 = torch.float32
 
@@ -136,15 +140,12 @@ class FusedQPSolver:
         if os.environ.get("LBMPC_CHOL") == "xla":
             raise ValueError("LBMPC_CHOL=xla (the XLA Cholesky) is not ported "
                              "yet; the port solves the KKT systems on K5")
-        # the reference's blocked kernels (K6) take over only at n_p >= 32
-        if os.environ.get("LBMPC_CHOL_BLOCKED") == "1" and -(-nz // 8) * 8 >= 32:
-            raise ValueError("LBMPC_CHOL_BLOCKED=1 (the slab-blocked K6 "
-                             "kernels) is not ported yet")
         self.device = dev = resolve_device(device)
         self.iters, self.scale, self.d_cap = int(iters), bool(scale), float(d_cap)
         self.plain = plain
         self.nz, self.mI = nz, mI
         self.store_L = factor_store_feasible()
+        self.blocked = blocked_switch(nz)
         t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
         self.H = t(H).reshape(1, nz, nz) if H is not None else None
         self.G = t(G)
@@ -232,10 +233,14 @@ class FusedQPSolver:
                 return -rp - Gdx, d * (rp + Gdx) - rc / s_safe
 
             rc_aff = s * z
+            # module globals looked up at call time (tests and chip_smoke
+            # wrap them)
+            factor = chol_factor_solve_blocked if self.blocked else chol_factor_solve
+            refactor = chol_solve_blocked if self.blocked else chol_solve
             if self.store_L:
-                L, u_a = chol_factor_solve(Mk, rhs_of(rc_aff) * sc, plain)
+                L, u_a = factor(Mk, rhs_of(rc_aff) * sc, plain)
             else:
-                u_a = chol_solve(Mk, rhs_of(rc_aff) * sc, plain)
+                u_a = refactor(Mk, rhs_of(rc_aff) * sc, plain)
             ds_a, dz_a = expand(u_a * sc, rc_aff)
             ap = steplen(s, ds_a, 1.0)
             ad = steplen(z, dz_a, 1.0)
@@ -247,7 +252,7 @@ class FusedQPSolver:
             if self.store_L:
                 dx = chol_resolve(L, rhs_c, plain) * sc
             else:
-                dx = chol_solve(Mk, rhs_c, plain) * sc
+                dx = refactor(Mk, rhs_c, plain) * sc
             ds, dz = expand(dx, rc)
             ap = steplen(s, ds, 0.995)
             ad = steplen(z, dz, 0.995)

@@ -36,7 +36,7 @@ class MonoPhase:
         self.gn = gn
         self.G, self.h0, self.Hp = G, h0, Hp
         self.iters, self.d_cap, self.tau = int(iters), float(d_cap), float(tau)
-        self.kernel_ok = gn.kernel_ok and G.shape[0] <= MI_MAX
+        self.kernel_ok = gn.narrow and G.shape[0] <= MI_MAX
 
     def plain(self, z, dx0, window: DataWindow):
         """The plain PyTorch version: same function, any device."""

@@ -1,7 +1,11 @@
-"""K2 and K4 — fixed-iteration Mehrotra predictor-corrector QPs, the whole
-loop in one launch: K2 with a Hessian per lane (csrc/mehrotra_h.cu), K4
-with one H shared by the batch (csrc/mehrotra.cu). Both run the loop of
-csrc/mehrotra_body.cuh, which K3 (ops/mono_kernel) runs too.
+"""K2, K2w and K4 — fixed-iteration Mehrotra predictor-corrector QPs, the
+whole loop in one launch: K2 with a Hessian per lane at nz <= 32
+(csrc/mehrotra_h.cu), K2w the same at 32 < nz <= 128 (csrc/mehrotra_h_wide.cu:
+G stays in device memory, the factorization is block-wide), K4 with one H
+shared by the batch (csrc/mehrotra.cu). K2 and K4 run the loop of
+csrc/mehrotra_body.cuh, which K3 (ops/mono_kernel) runs too; K2w runs the
+same iteration from csrc/mehrotra_wide.cuh. mehrotra_h picks K2 or K2w by
+nz, with one wrapper contract.
 
 Ports of lbmpc_tpu/ops/pallas_ipm.py: build_pallas_qp_solver_h (K2) and
 build_pallas_qp_solver (K4). Each lane solves min 1/2 x'H x + g'x s.t.
@@ -22,12 +26,14 @@ from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.ops._cuda import F, I, P, CudaKernel, check, ptr
 
 KERNEL = CudaKernel("mehrotra_h", [P] * 10 + [I, I, I, I, F, F, F, P])
+KERNEL_WIDE = CudaKernel("mehrotra_h_wide", [P] * 10 + [I, I, I, I, F, F, F, P])
 KERNEL_SHARED = CudaKernel("mehrotra", [P] * 7 + [I, I, I, I, F, F, P])
 
 BIG = 1e6           # ratio-test sentinel (pallas_ipm.py:34)
 RIDGE = 1e-6        # KKT ridge
 SHARED_D_CAP = 1e7  # build_pallas_qp_solver's d cap (pallas_ipm.py:723)
-NZ_MAX, MI_MAX = 32, 1024   # csrc/mehrotra_body.cuh kNzMax, kMaxRows
+NZ_MAX, MI_MAX = 32, 1024   # csrc/mehrotra_body.cuh kNzMax, kMaxRows (K2, K4)
+NZ_MAX_WIDE = 128           # csrc/mehrotra_wide.cuh kNzMax (K2w)
 
 
 def analyze_constraint_rows(G: np.ndarray) -> dict:
@@ -152,16 +158,17 @@ def mehrotra_h_plain(G, H, g, h, iters: int, tau: float = 0.995,
     return x, mean(s * z), (s[:, :mI], z[:, :mI])
 
 
-def _check_sizes(name: str, nz: int, mI: int) -> None:
-    if nz > NZ_MAX or mI > MI_MAX:
-        raise ValueError(f"the {name} kernel takes nz <= {NZ_MAX} and mI <= {MI_MAX} "
+def _check_sizes(name: str, nz: int, mI: int, nz_max: int = NZ_MAX) -> None:
+    if nz > nz_max or mI > MI_MAX:
+        raise ValueError(f"the {name} kernel takes nz <= {nz_max} and mI <= {MI_MAX} "
                          f"(got nz={nz}, mI={mI})")
 
 
 def mehrotra_h(G, H, g, h, iters: int, tau: float = 0.995, d_cap: float = 1e6,
                warm=None, warm_eps: float = 1e-5, want_state: bool = False):
-    """Route one batched solve: CUDA tensors launch the kernel, CPU tensors
-    take mehrotra_h_plain. Returns (x, mu, (s, z) or None)."""
+    """Route one batched solve: CUDA tensors launch K2 (nz <= 32) or K2w
+    (32 < nz <= 128), CPU tensors take mehrotra_h_plain. Returns
+    (x, mu, (s, z) or None)."""
     if g.device.type == "cpu":
         x, mu, state = mehrotra_h_plain(G, H, g, h, iters, tau, d_cap, warm,
                                         warm_eps)
@@ -171,7 +178,7 @@ def mehrotra_h(G, H, g, h, iters: int, tau: float = 0.995, d_cap: float = 1e6,
     dev = g.device
     Bsz, nz = g.shape
     mI = G.shape[0]
-    _check_sizes("mehrotra_h", nz, mI)
+    _check_sizes("mehrotra_h (K2) / mehrotra_h_wide (K2w)", nz, mI, NZ_MAX_WIDE)
     check("G", G, (mI, nz), dev)
     check("H", H, (Bsz, nz, nz), dev)
     check("g", g, (Bsz, nz), dev)
@@ -185,7 +192,8 @@ def mehrotra_h(G, H, g, h, iters: int, tau: float = 0.995, d_cap: float = 1e6,
               torch.empty(Bsz, mI, dtype=torch.float32, device=dev))
              if want_state else None)
     null = P(None)
-    KERNEL.launch(dev, ptr(G), ptr(H), ptr(g), ptr(h),
+    kernel = KERNEL if nz <= NZ_MAX else KERNEL_WIDE
+    kernel.launch(dev, ptr(G), ptr(H), ptr(g), ptr(h),
                   ptr(warm[0]) if warm is not None else null,
                   ptr(warm[1]) if warm is not None else null,
                   ptr(x), ptr(mu),

@@ -145,16 +145,25 @@ def test_casadi_xla_route_matches_reference(monkeypatch):
 
 
 def test_kernel_route_refuses_the_flagship(dms):
-    """qp_kernel="pallas_full" at nz=101 (casadi family; K1 and K2 stop at
-    nz <= 32) raises a clear ValueError instead of computing."""
+    """The one kernel route that refuses the flagship is pallas_mono: at the
+    DMS shape the reference's own fused kernel exceeds its VMEM budget, and
+    the message says so. pallas_full (K1w + K2w) and pallas (K2w) build at
+    nz=101. The fmincon family at nz=101 has 1606 constraint rows, beyond the
+    QP kernels' 1024 (as the reference's), so every kernel route refuses it
+    with a clear ValueError instead of computing."""
     _, ts = dms
-    with pytest.raises(ValueError, match="pallas_full.*not ported"):
+    with pytest.raises(ValueError, match="pallas_mono.*VMEM"):
         make_lbmpc_solver_fused(ts.qp, ts.A, ts.B, ts.ocp.Ks, ts.w, family="casadi",
-                                qp_kernel="pallas_full", device="cpu")
+                                qp_kernel="pallas_mono", device="cpu")
+    for route in ("pallas_full", "pallas"):
+        s = make_lbmpc_solver_fused(ts.qp, ts.A, ts.B, ts.ocp.Ks, ts.w, family="casadi",
+                                    qp_kernel=route, device="cpu")
+        assert s.gn.wide and not s.gn.narrow
     fm = dataclasses.replace(ts.cfg, family="fmincon", ocp=dataclasses.replace(
         ts.cfg.ocp, terminal_at="last", tighten_first_step=False))
     tf = t_build(fm)
-    assert tf.nz == 101
-    with pytest.raises(ValueError, match="nz <= 32"):
-        make_lbmpc_solver_fused(tf.qp, tf.A, tf.B, tf.ocp.Ks, tf.w,
-                                qp_kernel="pallas_full", device="cpu")
+    assert tf.nz == 101 and tf.qp.G.shape[0] > 1024
+    for route in ("pallas_full", "pallas", "pallas_mono"):
+        with pytest.raises(ValueError, match="mI <= 1024"):
+            make_lbmpc_solver_fused(tf.qp, tf.A, tf.B, tf.ocp.Ks, tf.w,
+                                    qp_kernel=route, device="cpu")

@@ -1,7 +1,7 @@
-"""PyTorch port on the card: K1 (gn_phase), K2 (mehrotra_h), K3
-(gn_mehrotra), K4 (mehrotra) and K5a/b/c (chol) against their plain versions
-on the same CUDA tensors, and the routes of the fused solve against their
-plain routes. Marked `gpu`; without CUDA every test skips. On a machine with
+"""PyTorch port on the card: K1 (gn_phase), K1w (gn_wide), K2 (mehrotra_h),
+K2w (mehrotra_h_wide), K3 (gn_mehrotra), K4 (mehrotra), K5a/b/c (chol) and
+K6a/b (chol_blocked) against their plain versions on the same CUDA tensors,
+and the routes of the fused solve against their plain routes. Marked `gpu`; without CUDA every test skips. On a machine with
 an NVIDIA GPU and nvcc (no JAX needed):
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -269,3 +269,135 @@ def test_fused_solve_mono_and_pallas_routes(cuda, bench):
     d = (zk - zf).abs()
     assert d.median().item() < 1e-6 and d[:, 0].max().item() < 5e-2
     assert ck.float().mean().item() >= 0.99 and cm.float().mean().item() >= 0.99
+
+
+@pytest.fixture(scope="module")
+def wide(cuda):
+    """The two wide shapes: the DMS flagship (casadi, N=100, nz=101, G (1024,
+    101)) and LBMPC_N40 uncut (fmincon, N=40, nz=41, G (414, 41)), q=100."""
+    out = {}
+    for name, family in (("DMS_LBMPC_q100", "casadi"), ("LBMPC_N40", "fmincon")):
+        cfg = lt.make_preset(name)
+        sc = build_scenario(cfg)
+        assert cfg.oracle.q == Q
+        out[family] = (sc, dict(family=family, delta=cfg.plant.ts,
+                                bandwidth=cfg.oracle.bandwidth, ridge=cfg.oracle.ridge,
+                                dx_ref=np.asarray(cfg.dx_ref)))
+    return out
+
+
+@pytest.mark.parametrize("n, B", [(25, 64), (41, 300), (101, 40), (128, 3)])
+def test_chol_blocked_kernels_equal_k5(cuda, n, B):
+    """K6a equals K5a (L and x) and K6b equals K5b bit for bit: the
+    slab-blocked factorization subtracts each entry's terms in K5's order,
+    each operation rounded on its own; K5c resolves K6a's L as it is."""
+    rng = np.random.default_rng(100 + n)
+    A = rng.standard_normal((B, n, n))
+    M = torch.tensor(A @ np.swapaxes(A, 1, 2) + n * np.eye(n), dtype=torch.float32,
+                     device=cuda)
+    b = torch.tensor(rng.standard_normal((B, n)), dtype=torch.float32, device=cuda)
+    n0 = [k.launches for k in chol_kernel.BLOCKED_KERNELS]
+    Lb, xb = chol_kernel.chol_factor_solve_blocked(M, b)
+    xsb = chol_kernel.chol_solve_blocked(M, b)
+    assert [k.launches - c for k, c in zip(chol_kernel.BLOCKED_KERNELS, n0)] == [1, 1]
+    L, x = chol_kernel.chol_factor_solve(M, b)
+    xs = chol_kernel.chol_solve(M, b)
+    torch.cuda.synchronize()
+    assert torch.equal(Lb, L) and torch.equal(xb, x) and torch.equal(xsb, xs)
+    assert torch.equal(chol_kernel.chol_resolve(Lb, 2.0 * b), chol_kernel.chol_resolve(L, 2.0 * b))
+    Lp, xp = chol_kernel.chol_factor_solve_blocked(M, b, plain=True)
+    assert torch.equal(Lb, Lp) and torch.equal(xb, xp)
+
+
+@pytest.mark.parametrize("family", ["casadi", "fmincon"])
+def test_gn_wide_kernel_matches_plain(cuda, wide, family):
+    """K1w at the DMS and N40 shapes: e, H, g within 1e-5 max|H| of the
+    plain version (the K1 class), H exactly symmetric, and one launch of
+    K1w and none of K1."""
+    sc, kw = wide[family]
+    gn = GNPhase(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, device=cuda, **kw)
+    assert gn.wide and not gn.narrow
+    z, dx, win = _inputs(64, sc.nz, cuda, seed=11)
+    n0 = (gn_kernel.KERNEL.launches, gn_kernel.KERNEL_WIDE.launches)
+    e, H, g = gn(z, dx, win)
+    assert (gn_kernel.KERNEL.launches - n0[0], gn_kernel.KERNEL_WIDE.launches - n0[1]) == (0, 1)
+    e_p, H_p, g_p = gn.plain(z, dx, win)
+    torch.cuda.synchronize()
+    hmax = H_p.abs().max().item()
+    for a, b in ((e, e_p), (H, H_p), (g, g_p)):
+        assert (a - b).abs().max().item() <= 1e-5 * hmax
+    assert torch.equal(H, H.transpose(1, 2))
+
+
+def _as_close(ref, a, b, slack: int = 1):
+    """a is as close to the anchor `ref` as b: median |a - ref| at most 1.5
+    times b's (+1e-8), and at most `slack` more lanes beyond 5e-2 of it."""
+    ea, eb = ((x.double() - ref.double()).abs() for x in (a, b))
+    far = lambda e: int((~(e.amax(dim=1) <= 5e-2)).sum())
+    assert ea.median().item() <= 1.5 * eb.median().item() + 1e-8
+    assert far(ea) <= far(eb) + slack
+
+
+@pytest.mark.parametrize("family", ["casadi", "fmincon"])
+def test_qp_wide_kernel_matches_plain(cuda, wide, family):
+    """K2w on the QP built from K1w's H and g, cold at 8 iterations and warm
+    for 2 from K2w's state: one K2w launch a solve and no K2; cold_state
+    reproduces the cold start bit for bit. The N40 cold solve holds the K2
+    class. Where that class cannot hold — the DMS QP, whose float32 plain
+    version is itself ~1e-6 from the float64 solve in the median, and the
+    2-iteration warm solves, which start where d = z/s reaches the 1e6 cap —
+    K2w is held to the plain version in float64 (chip_smoke.f64_gates)."""
+    sc, kw = wide[family]
+    gn = GNPhase(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, device=cuda, **kw)
+    z, dx, win = _inputs(96, sc.nz, cuda, seed=12)
+    _, H, g = gn(z, dx, win)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    G = t(sc.qp.G)
+    h = step_rhs(t(sc.qp.h0), t(sc.qp.Hp), G, dx, z)
+    f64 = lambda it, warm=None: mehrotra_h_plain(
+        G.double(), H.double(), g.double(), h.double(), it,
+        warm=None if warm is None else tuple(a.double() for a in warm))[0]
+    n0 = (qp_kernel.KERNEL.launches, qp_kernel.KERNEL_WIDE.launches)
+    x, mu, st = mehrotra_h(G, H, g, h, 8, want_state=True)
+    assert (qp_kernel.KERNEL.launches - n0[0], qp_kernel.KERNEL_WIDE.launches - n0[1]) == (0, 1)
+    xp, mup, _ = mehrotra_h_plain(G, H, g, h, 8)
+    if family == "fmincon":
+        d = (x - xp).abs()
+        assert d.median().item() < 1e-6 and d.max().item() < 5e-2
+        assert (mu - mup).abs().max().item() < 1e-3
+    else:
+        _as_close(f64(8), x, xp)
+    xw, _, _ = mehrotra_h(G, H, g, h, 2, warm=st)
+    xwp, _, _ = mehrotra_h_plain(G, H, g, h, 2, warm=st)
+    _as_close(f64(2, st), xw, xwp)
+    xc, muc, stc = mehrotra_h(G, H, g, h, 8, warm=QPSolverH.cold_state(h), want_state=True)
+    assert torch.equal(xc, x) and torch.equal(muc, mu) and torch.equal(stc[1], st[1])
+
+
+def test_fused_solve_wide_routes(cuda, wide):
+    """The DMS flagship on pallas_full (2 K1w + 2 K2w a solve) and pallas
+    (2 K2w, no GN kernel); no narrow kernel runs. Each kernel route is as
+    close to the xla route (K5, an independent implementation of the QP) as
+    its plain route is, its applied control c_0 within 5e-2 of the plain
+    route's, and conv within 5 % of the lanes here."""
+    sc, kw = wide["casadi"]
+    args = (sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w)
+    common = dict(sqp_iters=2, ipm_iters=(16, 8), alphas=((1.0,), (1.0, 0.5, 0.25)),
+                  device=cuda, **kw)
+    _, dx, win = _inputs(128, sc.nz, cuda, seed=13)
+    dx = dx + torch.as_tensor(np.asarray(sc.cfg.x_init_abs) - np.asarray(sc.cfg.plant.x_wp)
+                              - np.array([-0.35, -0.4, 0, 0]), dtype=torch.float32,
+                              device=cuda)
+    z0 = torch.zeros(128, sc.nz, device=cuda)
+    zx, _ = make_lbmpc_solver_fused(*args, qp_kernel="xla", **common)(dx, win, z0)
+    ks = (gn_kernel.KERNEL, gn_kernel.KERNEL_WIDE, qp_kernel.KERNEL, qp_kernel.KERNEL_WIDE)
+    for route, want in (("pallas_full", [0, 2, 0, 2]), ("pallas", [0, 0, 0, 2])):
+        n0 = [k.launches for k in ks]
+        zk, ck = make_lbmpc_solver_fused(*args, qp_kernel=route, **common)(dx, win, z0)
+        assert [k.launches - c for k, c in zip(ks, n0)] == want
+        zp, cp = make_lbmpc_solver_fused(*args, qp_kernel=route, plain=True,
+                                         **common)(dx, win, z0)
+        assert bool(zk.isfinite().all())
+        _as_close(zx, zk, zp, slack=2)
+        assert (zk - zp)[:, 0].abs().max().item() < 5e-2
+        assert abs(ck.float().mean().item() - cp.float().mean().item()) <= 0.05

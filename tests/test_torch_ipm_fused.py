@@ -204,11 +204,17 @@ def test_store_switch_routes_through_the_refactor_kernel(monkeypatch):
 
 @pytest.mark.parametrize("what", ["refine", "LBMPC_CHOL", "LBMPC_CHOL_BLOCKED"])
 def test_unported_options_raise(what, monkeypatch):
+    """refine=True and LBMPC_CHOL=xla are not ported and raise;
+    LBMPC_CHOL_BLOCKED=1 is ported (K6) and builds a solver on the blocked
+    kernels at nz=40 (n_p >= 32), which the switch once refused."""
     G = _structured_G(nz=40)
     kw = {}
     if what == "refine":
         kw["refine"] = True
     else:
         monkeypatch.setenv(what, "xla" if what == "LBMPC_CHOL" else "1")
+    if what == "LBMPC_CHOL_BLOCKED":
+        assert _port(None, G).blocked
+        return
     with pytest.raises(ValueError, match="not ported"):
         _port(None, G, **kw)

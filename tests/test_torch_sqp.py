@@ -209,19 +209,20 @@ def test_xla_route_hybrid_matches_reference(setup, monkeypatch):
 
 
 def test_unported_routes_raise(setup, monkeypatch):
-    """What stays unported raises ValueError: the pallas and pallas_mono
-    routes above nz 32 (K2, K3), pallas_mono for the casadi family, the
-    vmapped repair and the ws-seeded repair, jac_mode="jacfwd", the kernel
-    route beyond the m=1 fmincon family, and the LBMPC_CHOL_BLOCKED switch
-    (K6) at n_p >= 32."""
+    """What stays unported raises ValueError: pallas_mono above nz 32 (K3)
+    and for the casadi family, the vmapped repair and the ws-seeded repair,
+    jac_mode="jacfwd". What the wide kernels (K1w, K2w) and K6 ported now
+    builds: pallas at nz=41, pallas_full for the casadi family, and the
+    xla route with LBMPC_CHOL_BLOCKED=1 at n_p >= 32."""
     cfg, sc, qp, w, ts, data, kw = setup
     ts40 = t_build(dataclasses.replace(
         ts.cfg, ocp=dataclasses.replace(ts.cfg.ocp, N=40)))
     assert ts40.nz == 41
     for route in ("pallas", "pallas_mono"):
         _port(ts, qp_kernel=route, **kw)      # nz=13: ported
-        with pytest.raises(ValueError, match="not ported"):
-            _port(ts40, qp_kernel=route, **kw)
+    assert _port(ts40, qp_kernel="pallas", **kw).qp_kernel == "pallas"   # K2w
+    with pytest.raises(ValueError, match="not ported"):
+        _port(ts40, qp_kernel="pallas_mono", **kw)
     _port(ts, qp_kernel="pallas", **{**kw, "family": "casadi"})
     with pytest.raises(ValueError, match="not ported"):
         _port(ts, qp_kernel="pallas_mono", **{**kw, "family": "casadi"})
@@ -235,13 +236,14 @@ def test_unported_routes_raise(setup, monkeypatch):
         _port(ts, t_sqp.make_lbmpc_solver_hybrid, qp_kernel="xla", **kw)
     with pytest.raises(ValueError, match="not ported"):
         _port(ts, qp_kernel="xla", jac_mode="jacfwd", **kw)
-    with pytest.raises(ValueError, match="not ported"):
-        _port(ts, **{**kw, "family": "casadi"})
+    casadi_full = _port(ts, **{**kw, "family": "casadi"})    # pallas_full, K1w
+    assert casadi_full.qp_kernel == "pallas_full" and casadi_full.gn.wide
     with pytest.raises(ValueError, match="raw_qpwarm needs"):
         s = _port(ts, qp_kernel="xla", qp_warm=True, **kw)
         dx, wins, z0 = _port_inputs(data)
         s.raw_qpwarm(dx.float(), wins.to(torch.float32), z0, None)
     monkeypatch.setenv("LBMPC_CHOL_BLOCKED", "1")
-    _port(ts, qp_kernel="xla", **kw)          # nz=13 -> n_p=16: no K6 there
-    with pytest.raises(ValueError, match="not ported"):
-        _port(ts40, qp_kernel="xla", **kw)
+    s13 = _port(ts, qp_kernel="xla", **kw)          # nz=13 -> n_p=16: no K6 there
+    s41 = _port(ts40, qp_kernel="xla", **kw)        # nz=41 -> n_p=48: K6
+    assert not any(f.blocked for f in s13._fused.values())
+    assert all(f.blocked for f in s41._fused.values())
