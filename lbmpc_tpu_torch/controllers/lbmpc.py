@@ -5,7 +5,10 @@ performance is optimized against the oracle-corrected model while safety
 constraints are enforced on the nominal model. In condensed form the nominal
 constraints are the constant (G, h0, Hp) stack of the condensed QP; only the
 cost rolls out the learned dynamics, as the Gauss-Newton residual stack built
-here (batched over lanes).
+here (batched over lanes). make_lbmpc_solver runs the per-problem SQP
+(controllers/sqp.py) on it — the vmapped solver of the reference, with the
+lanes on the leading axis — and make_casadi_warm_start is the casadi
+family's shift-and-append warm start.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from lbmpc_tpu_torch.controllers.condensed import CondensedQP
+from lbmpc_tpu_torch.controllers.sqp import sqp_solve
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.oracle import (DataWindow, make_xi, nw_estimate,
                                     nw_estimate_and_jac)
@@ -161,3 +165,78 @@ def make_residual_and_jac(
         return e, J
 
     return residual, res_jac
+
+
+def make_lbmpc_solver(
+    qp: CondensedQP,
+    A: np.ndarray,
+    B: np.ndarray,
+    Ks: np.ndarray,
+    w: LBMPCWeights,
+    family: str = "fmincon",
+    delta: float = 0.01,
+    bandwidth: float = 0.5,
+    ridge: float = 0.001,
+    dx_ref: np.ndarray | None = None,
+    sqp_iters: int = 3,
+    ipm_iters: int = 30,
+    dtype=torch.float64,
+    mixed: bool = False,
+    device=None,
+):
+    """Returns solve(dx0 (B, n), window, z_ws (B, nz)) -> (z (B, nz),
+    converged (B,)): `sqp_iters` Gauss-Newton SQP iterations per lane on the
+    learned-rollout residual (make_residual_and_jac's hand-derived Jacobian)
+    under the constant nominal constraints G z <= h0 + Hp dx0, each QP solved
+    by ops/ipm (`ipm_iters` iterations; mixed=True: float32 + a float64
+    refinement, with `dtype` float64). The inputs are cast to `dtype` on the
+    solver's device; `converged` is the last QP's flag, as in the reference.
+    family='fmincon': u_k = Ks x_k + c_k, running stages 0..N-3;
+    family='casadi': u_k = c_k, delta-scaled running stages 0..N-1."""
+    dev = resolve_device(device)
+    t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=dtype, device=dev)
+    Gd, h0d, Hpd = t(qp.G), t(qp.h0), t(qp.Hp)
+    residual, res_jac = make_residual_and_jac(
+        qp, A, B, Ks, w, family=family, delta=delta, bandwidth=bandwidth,
+        ridge=ridge, dx_ref=dx_ref, dtype=dtype, device=dev)
+
+    def solve(dx0, window: DataWindow, z_ws):
+        dx0 = dx0.to(dev, dtype)
+        window = window.to(dtype, dev)
+        Bsz = dx0.shape[0]
+
+        def cost(z):
+            # z may stack k copies of the batch (sqp_solve's merit ladder)
+            k = z.shape[0] // Bsz
+            if k == 1:
+                e = residual(z, dx0, window)
+            else:
+                tile = lambda a: a.repeat((k,) + (1,) * (a.ndim - 1))
+                e = residual(z, tile(dx0), DataWindow(*(tile(a) for a in window)))
+            return (e * e).sum(dim=1)
+
+        h = h0d + dx0 @ Hpd.T
+        out = sqp_solve(cost, lambda z: residual(z, dx0, window), Gd, h,
+                        z_ws.to(dev, dtype), iters=sqp_iters, ipm_iters=ipm_iters,
+                        mixed=mixed, res_jac_fn=lambda z: res_jac(z, dx0, window))
+        return out.z, out.qp_converged
+
+    return solve
+
+
+def make_casadi_warm_start(qp: CondensedQP, A, B, Ks, dtype=torch.float64,
+                           device=None):
+    """Shift-and-append warm start (ref: DMS_LBMPC_casadi.m:209-213), batched:
+    z' = [du_1..du_{N-1}, Ks dx_N^nom, theta], where dx_N^nom is the nominal
+    condensed rollout's final state from dx_used under the solution."""
+    dev = resolve_device(device)
+    N, m = qp.N, qp.m
+    t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=dtype, device=dev)
+    SxN, ScN, Ksd = t(qp.Sx[N]), t(qp.Sc[N]), t(np.atleast_2d(Ks))
+
+    def warm(z, dx_used, dx_next, window):
+        cs = z[:, :N * m]
+        dxN = dx_used @ SxN.T + cs @ ScN.T
+        return torch.cat([cs[:, m:], dxN @ Ksd.T, z[:, N * m:]], dim=1)
+
+    return warm

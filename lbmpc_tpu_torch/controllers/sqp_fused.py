@@ -17,15 +17,22 @@ reference casts it:
   fed that H as it is. The m=1 fmincon and casadi families at nz <= 128
   and mI <= 1024 (K1 and K2 at nz <= 32 for fmincon, the wide kernels
   otherwise);
-- `qp_kernel="pallas_mono"`: one launch per GN iteration — K3
-  (ops/mono_kernel: K1's GN body and a cold K2 loop in one block per lane).
-  The m=1 fmincon family at nz <= 32; qp_warm is ignored, as in the
-  reference.
+- `qp_kernel="pallas_mono"`: one launch per GN iteration — K3 or K3w
+  (ops/mono_kernel: the GN body and a cold Mehrotra loop in one block per
+  lane; K3 for the fmincon family at nz <= 32, K3w above it and for the
+  casadi family). The m=1 model at nz <= 128 and mI <= 1024, wherever the
+  reference's own scoped-VMEM model of its fused kernel lets it launch
+  (check_mono_vmem: the DMS flagship's shape does not); qp_warm is ignored,
+  as in the reference.
 The kernel routes hand K2/K3 the QP right-hand side h = (h0 + Hp dx0) - G z
 formed in one order (ops/qp_kernel.step_rhs), so pallas_mono and
 pallas_full without qp_warm solve the same QPs bit for bit.
 
-jac_mode="jacfwd" and the vmapped repair are not ported yet and raise.
+HybridSolver repairs the flagged lanes with the fused solver at the
+compacted size (repair_backend="fused") or with the per-problem SQP of
+controllers/lbmpc.make_lbmpc_solver on ops/ipm ("vmapped", the reference's
+default); FleetSolver (make_lbmpc_solver_fleet) defers one vmapped repair
+over R fused batches. jac_mode="jacfwd" is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -34,13 +41,13 @@ import numpy as np
 import torch
 
 from lbmpc_tpu_torch.controllers.condensed import CondensedQP
-from lbmpc_tpu_torch.controllers.lbmpc import LBMPCWeights
+from lbmpc_tpu_torch.controllers.lbmpc import LBMPCWeights, make_lbmpc_solver
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.oracle import DataWindow
 from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
 from lbmpc_tpu_torch.ops.ipm_fused import build_fused_qp_solver
 from lbmpc_tpu_torch.ops.mono_kernel import MonoPhase
-from lbmpc_tpu_torch.ops.qp_kernel import (MI_MAX, NZ_MAX, NZ_MAX_WIDE, QPSolverH,
+from lbmpc_tpu_torch.ops.qp_kernel import (MI_MAX, NZ_MAX_WIDE, QPSolverH,
                                            step_rhs)
 
 _ALPHAS = (1.0, 0.5, 0.25, 0.125, 0.0625)
@@ -70,21 +77,47 @@ def _check_route(qp_kernel: str, family: str, qp: CondensedQP,
         return
     if qp.m != 1:
         raise ValueError(f"qp_kernel={qp_kernel!r} covers the m=1 model (K1, K1w, "
-                         f"K3), as the reference's kernels; m={qp.m}")
-    if qp_kernel == "pallas_full":
-        return
-    if family == "casadi":
+                         f"K3, K3w), as the reference's kernels; m={qp.m}")
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+MONO_TILE = 128              # the reference's mono lane-tile cap (LBMPC_MONO_TILE)
+_VMEM_PAD = 6 << 20          # grant = need + 6M
+_VMEM_BUDGET = 60 << 20
+
+
+def mono_vmem_need(qp: CondensedQP, family: str, q: int, tile: int) -> int:
+    """The scoped-VMEM bytes that the reference's fused GN + Mehrotra kernel
+    models for itself (lbmpc_tpu/ops/pallas_gn.py:177-205, _vmem_grant with
+    ipm): the resident elements of a lane tile of `tile` lanes at the padded
+    shapes, times its 2.7 liveness calibration, in float32."""
+    n = qp.n
+    n_run = qp.N - 2 if family == "fmincon" else qp.N
+    ne = n_run * (n + qp.m) + 2 * n
+    nz_p, ne_p, q_p = _round_up(qp.nz, 8), _round_up(ne, 8), _round_up(q, 8)
+    mI_p = _round_up(qp.G.shape[0], 128)
+    d_in, d_out = 3, n
+    el = (2 * (d_in + d_out) * q_p + 8 * q_p + n * nz_p + 2 * ne_p
+          + 3 * nz_p * nz_p) * tile
+    el += 6 * mI_p * tile + 2 * nz_p * mI_p + mI_p * 128
+    return int(2.7 * el * 4)
+
+
+def check_mono_vmem(qp: CondensedQP, family: str, q: int, tile: int) -> None:
+    """Raise, with the reference's message, where the reference's fused
+    kernel refuses to launch: its modelled need plus the 6M pad exceeds the
+    60M grant budget (59.3M at the DMS flagship, nz_p=104, q_p=104, tile
+    128). The port's kernels have no such budget; the route runs where the
+    reference's runs, and nowhere else."""
+    need = mono_vmem_need(qp, family, q, tile)
+    if need + _VMEM_PAD > _VMEM_BUDGET:
         raise ValueError(
-            "qp_kernel='pallas_mono' for the casadi family is not ported: at the "
-            "DMS flagship's shape the reference's own fused kernel refuses to "
-            "launch (pallas_gn.py:177-205, scoped-VMEM need 59.3M at nz_p=104, "
-            "q_p=104, tile 128 exceeds its 60M grant budget); use "
-            "qp_kernel='pallas_full' or 'pallas'")
-    if qp.nz > NZ_MAX:
-        raise ValueError(
-            f"qp_kernel='pallas_mono' (K3) is ported for the fmincon family at "
-            f"nz <= {NZ_MAX}; nz={qp.nz} is not ported yet: use "
-            "qp_kernel='pallas_full' (K1w + K2w) or 'xla'")
+            f"pallas GN kernel scoped-VMEM need {need / 2**20:.1f}M "
+            f"(nz_p={_round_up(qp.nz, 8)}, q_p={_round_up(q, 8)}, tile={tile}, "
+            "ipm=True) exceeds the 60M grant budget; shrink the tile")
 
 
 class FusedSolver:
@@ -105,9 +138,13 @@ class FusedSolver:
                  alphas: tuple = _ALPHAS, qp_warm: bool = False,
                  warm_eps: float = 1e-5, device=None, plain: bool = False):
         _check_route(qp_kernel, family, qp, jac_mode)
-        del tile  # the reference's TPU lane tile; nothing to tile here
         self.device = dev = resolve_device(device)
         self.qp_kernel = qp_kernel
+        # the reference's TPU lane tile: nothing is tiled here, but the
+        # pallas_mono route runs only where the reference's VMEM model at its
+        # mono tile admits it (checked per window size at the first solve)
+        self.mono_tile = min(512 if tile is None else tile, MONO_TILE)
+        self._qp, self._family, self._vmem_ok = qp, family, set()
         self.sqp_iters = sqp_iters
         self.rho = rho
         self.alphas = alphas
@@ -178,6 +215,10 @@ class FusedSolver:
                                              z_ws.to(_F32)))
 
     def _solve(self, dx0, windows: DataWindow, z, qp_state):
+        q = windows.X.shape[-2]
+        if self.qp_kernel == "pallas_mono" and q not in self._vmem_ok:
+            check_mono_vmem(self._qp, self._family, q, self.mono_tile)
+            self._vmem_ok.add(q)
         loop = qp_state is not None
         G = self.G
         h = self.h0[None, :] + dx0 @ self.Hp.T
@@ -238,11 +279,14 @@ def make_lbmpc_solver_fused(qp: CondensedQP, A, B, Ks, w: LBMPCWeights,
 
 class HybridSolver:
     """Fused batch SQP + a fixed-size compacted repair of flagged lanes
-    (make_lbmpc_solver_hybrid, repair_backend="fused"): the K =
-    round(B * repair_frac) lanes flagged first (stable order, as
-    lax.top_k ranks ties) are gathered, re-solved through the same kernels
-    with the repair budget from the fused iterate (repair_warm="fused"),
-    and scattered back where a lane was flagged."""
+    (make_lbmpc_solver_hybrid): the K = round(B * repair_frac) lanes flagged
+    first (stable order, as lax.top_k ranks ties) are gathered, re-solved
+    with the repair budget, and scattered back where a lane was flagged.
+    repair_backend="vmapped" (the reference's default) re-solves them with
+    the per-problem float32 SQP (controllers/lbmpc.make_lbmpc_solver on
+    ops/ipm), "fused" through the fused solver's own route at the compacted
+    size. repair_warm="ws" seeds the repair at the original warm start,
+    "fused" at the fused iterate where it is finite."""
 
     def __init__(self, qp: CondensedQP, A, B, Ks, w: LBMPCWeights,
                  family: str = "fmincon", delta: float = 0.01,
@@ -254,39 +298,35 @@ class HybridSolver:
                  qp_kernel: str = "xla", alphas: tuple = _ALPHAS,
                  repair_backend: str = "vmapped", qp_warm: bool = False,
                  device=None, plain: bool = False):
-        if repair_backend != "fused" or repair_warm != "fused":
-            raise ValueError(
-                f"repair_backend={repair_backend!r}, repair_warm={repair_warm!r}: "
-                "not ported yet; the port has the fused repair seeded at the "
-                "fused iterate (repair_backend='fused', repair_warm='fused')")
-        common = dict(family=family, delta=delta, bandwidth=bandwidth,
-                      ridge=ridge, dx_ref=dx_ref, rho=rho,
-                      qp_kernel=qp_kernel, device=device, plain=plain)
+        if repair_backend not in ("vmapped", "fused"):
+            raise ValueError(f"repair_backend={repair_backend!r}: 'vmapped' or 'fused'")
+        if repair_warm not in ("ws", "fused"):
+            raise ValueError(f"repair_warm={repair_warm!r}: 'ws' or 'fused'")
+        model = dict(family=family, delta=delta, bandwidth=bandwidth, ridge=ridge,
+                     dx_ref=dx_ref)
+        common = dict(model, rho=rho, qp_kernel=qp_kernel, device=device, plain=plain)
         self.fused = FusedSolver(qp, A, B, Ks, w, sqp_iters=sqp_iters,
-                                 ipm_iters=ipm_iters, alphas=alphas,
+                                 ipm_iters=ipm_iters, tile=tile, alphas=alphas,
                                  qp_warm=qp_warm, **common)
-        self.repair = FusedSolver(qp, A, B, Ks, w,
-                                  sqp_iters=repair_sqp_iters or sqp_iters,
-                                  ipm_iters=repair_ipm_iters,
-                                  alphas=(1.0, 0.5, 0.25), **common)
         self.device = self.fused.device
+        if repair_backend == "fused":
+            self.repair = FusedSolver(qp, A, B, Ks, w,
+                                      sqp_iters=repair_sqp_iters or sqp_iters,
+                                      ipm_iters=repair_ipm_iters,
+                                      alphas=(1.0, 0.5, 0.25), **common).raw
+        else:
+            self.repair = make_lbmpc_solver(
+                qp, A, B, Ks, w, sqp_iters=repair_sqp_iters or sqp_iters,
+                ipm_iters=repair_ipm_iters, dtype=_F32, device=self.device, **model)
+        self.repair_backend = repair_backend
+        self.repair_warm = repair_warm
         self.repair_frac = repair_frac
         self.init_qp_state = self.fused.init_qp_state
 
     def _repair(self, z, conv, dx0, windows: DataWindow, z_ws):
-        Bsz = dx0.shape[0]
-        K = max(1, min(Bsz, int(round(Bsz * self.repair_frac))))
-        flagged = ~conv
-        idx = torch.argsort(flagged.to(_F32), descending=True, stable=True)[:K]
-        take = flagged[idx]
-        z_seed = torch.where(torch.isfinite(z[idx]), z[idx], z_ws[idx])
-        z_r, conv_r = self.repair.raw(dx0[idx], windows.index(idx), z_seed)
-        z_r = torch.where(torch.isfinite(z_r), z_r, 0.0)
-        z = z.clone()
-        conv = conv.clone()
-        z[idx] = torch.where(take[:, None], z_r, z[idx])
-        conv[idx] = torch.where(take, conv_r, conv[idx])
-        return z, conv
+        K = max(1, min(dx0.shape[0], int(round(dx0.shape[0] * self.repair_frac))))
+        return repair_lanes(self.repair, K, self.repair_warm == "fused", z, conv, dx0,
+                            windows, z_ws)
 
     def __call__(self, dx0, windows: DataWindow, z_ws):
         dev = self.device
@@ -306,7 +346,73 @@ class HybridSolver:
         return z, conv, qp_state
 
 
+def repair_lanes(repair, K: int, seed_fused: bool, z, conv, dx0,
+                 windows: DataWindow, z_ws):
+    """Re-solve the K lanes flagged first (a stable descending sort of the
+    flags: lax.top_k's order) with `repair` (dx0, windows, z_seed) -> (z,
+    conv), seeded at z where finite (seed_fused) or at z_ws; scatter the
+    results back where a lane was flagged, a non-finite repaired z as 0.
+    Lanes past the K flagged first keep their result and their flag."""
+    flagged = ~conv
+    idx = torch.argsort(flagged.to(_F32), descending=True, stable=True)[:K]
+    take = flagged[idx]
+    z_seed = (torch.where(torch.isfinite(z[idx]), z[idx], z_ws[idx]) if seed_fused
+              else z_ws[idx])
+    z_r, conv_r = repair(dx0[idx], windows.index(idx), z_seed)
+    z_r = torch.where(torch.isfinite(z_r), z_r, 0.0)
+    z = z.clone()
+    conv = conv.clone()
+    z[idx] = torch.where(take[:, None], z_r, z[idx])
+    conv[idx] = torch.where(take, conv_r, conv[idx])
+    return z, conv
+
+
 def make_lbmpc_solver_hybrid(qp: CondensedQP, A, B, Ks, w: LBMPCWeights,
                              **kw) -> HybridSolver:
     """The reference factory's name for HybridSolver."""
     return HybridSolver(qp, A, B, Ks, w, **kw)
+
+
+class FleetSolver:
+    """Returned by make_lbmpc_solver_fleet: the fused SQP over R independent
+    batches, then ONE deferred compacted repair over all R B lanes with the
+    per-problem float32 SQP, seeded at the fused iterate. `solver(dx0 (R, B,
+    n), windows (R, B, ...), z_ws (R, B, nz))` -> (z (R, B, nz), conv (R, B))
+    casts to float32 on the solver's device; `raw` takes float32 tensors as
+    they are. Every solve is final when the call returns: a solve service,
+    not a closed loop (that is HybridSolver's)."""
+
+    def __init__(self, qp: CondensedQP, A, B, Ks, w: LBMPCWeights,
+                 sqp_iters: int = 2, ipm_iters=16, repair_frac: float = 1.0 / 128.0,
+                 repair_sqp_iters: int = 1, repair_ipm_iters: int = 20, **kw):
+        self.fused = FusedSolver(qp, A, B, Ks, w, sqp_iters=sqp_iters,
+                                 ipm_iters=ipm_iters, **kw)
+        self.device = self.fused.device
+        model = {k: v for k, v in kw.items()
+                 if k in ("family", "delta", "bandwidth", "ridge", "dx_ref")}
+        self.repair = make_lbmpc_solver(qp, A, B, Ks, w, sqp_iters=repair_sqp_iters,
+                                        ipm_iters=repair_ipm_iters, dtype=_F32,
+                                        device=self.device, **model)
+        self.repair_frac = repair_frac
+
+    def __call__(self, dx0, windows: DataWindow, z_ws):
+        dev = self.device
+        return self.raw(dx0.to(dev, _F32), windows.to(_F32, dev), z_ws.to(dev, _F32))
+
+    def raw(self, dx0, windows: DataWindow, z_ws):
+        R, Bsz = dx0.shape[:2]
+        total = R * Bsz
+        outs = [self.fused.raw(dx0[r], windows.index(r), z_ws[r]) for r in range(R)]
+        z = torch.stack([o[0] for o in outs])
+        conv = torch.stack([o[1] for o in outs])
+        flat = lambda a: a.reshape((total,) + a.shape[2:])
+        K = max(1, min(total, int(round(total * self.repair_frac))))
+        zf, convf = repair_lanes(self.repair, K, True, flat(z), flat(conv), flat(dx0),
+                                 DataWindow(*(flat(a) for a in windows)), flat(z_ws))
+        return zf.reshape(z.shape), convf.reshape(conv.shape)
+
+
+def make_lbmpc_solver_fleet(qp: CondensedQP, A, B, Ks, w: LBMPCWeights,
+                            **kw) -> FleetSolver:
+    """The reference factory's name for FleetSolver."""
+    return FleetSolver(qp, A, B, Ks, w, **kw)

@@ -47,7 +47,7 @@ gn_wide_kernel(const float* __restrict__ cst, const float* __restrict__ z,
   gn::stage_window(sh.win, X, Y, valid, b, q, c, T);
   __syncthreads();
   const float gacc = gnw::lane<kCasadi>(sh, cst, z + b * nz, dx0 + b * gnw::kN, N, q,
-                                        e_out + b * ne);
+                                        e_out + b * ne, T);
   // H = 2 J'J + Hconst, Hconst read at (min, max) so H stays symmetric
   const float* Hc = cst + gnw::C_HCONST;
   float* Hb = H_out + b * nz * nz;
@@ -72,7 +72,7 @@ int launch(const float* cst, const float* z, const float* dx0, const float* X,
         gn_wide_kernel<kCasadi>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (st != cudaSuccess) return (int)st;
   }
-  const int threads = nz <= 64 ? 64 : 128;
+  const int threads = gnw::threads(nz);
   gn_wide_kernel<kCasadi><<<B, threads, smem, (cudaStream_t)stream>>>(
       cst, z, dx0, X, Y, valid, e, H, g, N, q);
   return (int)cudaGetLastError();

@@ -41,6 +41,10 @@ constexpr int kMaxRows = kN + 1;           // Jacobian rows of a stage: rx (n) +
 constexpr int kSums = 20;                  // the NW sums of a stage
 constexpr int kMaxWarps = 4;               // 128 threads
 
+// The threads that run the GN phase at nz: gn_wide.cu's block size, and the
+// part of K3w's block that runs it (the NW sums' order depends on it).
+__host__ __device__ constexpr int threads(int nz) { return nz <= 64 ? 64 : 128; }
+
 // The constant block: gn_body.cuh's layout, plus C_SQD (sqrt(delta) for the
 // casadi family, 1 for fmincon); ops/gn_kernel.py writes the same offsets.
 enum {
@@ -90,19 +94,23 @@ __device__ __forceinline__ void add_outer(const Shared& sh, const float* D, cons
   }
 }
 
-// The GN phase of one lane, run by the whole block (thread c = column c):
-// reads the constant block cst, the lane's z (nz = N + 1) and dx0 (kN), and
-// its window staged in sh.win (synchronised by the caller); writes e (ne
-// floats) to eb (thread 0) and leaves 2 J'J (without Hconst) in sh.H,
-// synchronised. Returns g[c] in thread c < nz.
+// The GN phase of one lane, run by the first T threads of the block (thread
+// c = column c; T = 64 or 128, a multiple of 32 and >= nz): reads the
+// constant block cst, the lane's z (nz = N + 1) and dx0 (kN), and its window
+// staged in sh.win (synchronised by the caller); writes e (ne floats) to eb
+// (thread 0) and leaves 2 J'J (without Hconst) in sh.H, synchronised.
+// Returns g[c] in thread c < nz. Threads c >= T (a larger block: K3w's) take
+// part in every barrier and in nothing else, so the sums run in the same
+// order, and round the same, at any block size.
 template <bool kCasadi>
 __device__ __forceinline__ float lane(const Shared& sh, const float* __restrict__ cst,
                                       const float* __restrict__ zb,
                                       const float* __restrict__ dx0b, int N, int q,
-                                      float* __restrict__ eb) {
+                                      float* __restrict__ eb, int T) {
   constexpr int R = kCasadi ? kN : kN + 1;     // rows with a per-lane Jacobian
-  const int c = threadIdx.x, T = blockDim.x;
+  const int c = threadIdx.x;
   const int lane_id = c & 31, warp = c >> 5, nwarps = T >> 5;
+  const bool active = c < T;
   const int nz = N + 1;
   const int n_run = kCasadi ? N : N - 2;
   const bool col = c < nz;
@@ -124,7 +132,8 @@ __device__ __forceinline__ float lane(const Shared& sh, const float* __restrict_
   const float Lr = cst[C_LR], PSI = cst[C_PSI], sqrtT = cst[C_SQRTT];
   const float inv_bw2 = cst[C_INVBW2], ridge = cst[C_RIDGE], sqd = cst[C_SQD];
 
-  for (int e = c; e < nz * nz; e += T) sh.H[e] = 0.f;
+  if (active)
+    for (int e = c; e < nz * nz; e += T) sh.H[e] = 0.f;
 
   float gacc = 0.f;
   const float theta = zb[N];
@@ -155,7 +164,7 @@ __device__ __forceinline__ float lane(const Shared& sh, const float* __restrict_
     float acc[kSums];
 #pragma unroll
     for (int i = 0; i < kSums; ++i) acc[i] = 0.f;
-    for (int p = c; p < q; p += T) {
+    for (int p = c; active && p < q; p += T) {
       const float* w = sh.win + p * 8;
       const float d0 = w[0] - x[0], d1 = w[1] - x[1], d2 = w[2] - u;
       const float sq = d0 * d0 + d1 * d1 + d2 * d2;
@@ -177,7 +186,7 @@ __device__ __forceinline__ float lane(const Shared& sh, const float* __restrict_
 #pragma unroll
     for (int i = 0; i < kSums; ++i) {
       const float v = gn::warp_sum(acc[i]);
-      if (lane_id == 0) red[warp * kSums + i] = v;
+      if (lane_id == 0 && warp < nwarps) red[warp * kSums + i] = v;
     }
     __syncthreads();
 #pragma unroll

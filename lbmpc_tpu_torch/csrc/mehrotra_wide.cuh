@@ -29,6 +29,10 @@
 // One thread per constraint row keeps that row's s, z, d, rp and the
 // predictor/corrector terms in registers (mehrotra_body.cuh's kRowsPerThread
 // rows); step lengths and mu are K2's block reductions.
+// The kernels that include this file (K2w, K3w) are built with -fmad=false
+// (ops/_cuda.py), so the compiler fuses no multiply-add on its own, and
+// fuses them alike in both; the dot products and the assembly's register
+// tiles accumulate with explicit fused multiply-adds (__fmaf_rn).
 
 #pragma once
 
@@ -104,7 +108,7 @@ __device__ __forceinline__ void g_times(const float* __restrict__ G, const float
   for (int r = warp; r < mI; r += kWarps) {
     const float* row = G + (size_t)r * nz;
     float a = 0.f;
-    for (int c = lane; c < nz; c += 32) a += row[c] * vec[c];
+    for (int c = lane; c < nz; c += 32) a = __fmaf_rn(row[c], vec[c], a);
     a = mehrotra::warp_sum(a);
     if (lane == 0) out[r] = a;
   }
@@ -121,7 +125,7 @@ __device__ __forceinline__ void gt_times(const Shared& sh, const float* __restri
     const int c = q % nz, p = q / nz;
     float a = 0.f;
 #pragma unroll 8
-    for (int r = p; r < mI; r += kParts) a += G[(size_t)r * nz + c] * v[r];
+    for (int r = p; r < mI; r += kParts) a = __fmaf_rn(G[(size_t)r * nz + c], v[r], a);
     sh.part[q] = a;
   }
   __syncthreads();
@@ -164,7 +168,7 @@ __device__ __forceinline__ void assemble(const Shared& sh, const float* __restri
 #pragma unroll
       for (int a = 0; a < kT; ++a)
 #pragma unroll
-        for (int b = 0; b < kT; ++b) acc[a][b] += gi[a] * gj[b];
+        for (int b = 0; b < kT; ++b) acc[a][b] = __fmaf_rn(gi[a], gj[b], acc[a][b]);
     }
     // this chunk's partial sums into M (each thread owns its tile's entries)
 #pragma unroll
@@ -248,7 +252,7 @@ __device__ __forceinline__ void solve(const Shared& sh, const float* __restrict_
     gt_times(sh, G, sh.va, sh.gt, mI, nz);  // G'z
     if (tid < nz) {
       float hx = 0.f;
-      for (int j = 0; j < nz; ++j) hx += sh.H[tid * nz + j] * sh.x[j];
+      for (int j = 0; j < nz; ++j) hx = __fmaf_rn(sh.H[tid * nz + j], sh.x[j], hx);
       sh.rd[tid] = hx + sh.g[tid] + sh.gt[tid];
     }
     assemble<kT>(sh, G, mI, nz);

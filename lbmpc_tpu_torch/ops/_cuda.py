@@ -7,6 +7,11 @@ compiled at first use into build/lbmpc_tpu_torch/ for sm_90a, keyed by a hash
 of the source, the shared device headers (csrc/*.cuh) and the flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is. Kernels
 that share a source share its library.
+
+The wide kernels K1w, K2w and K3w are built with -fmad=false (WIDE_FLAGS):
+K3w runs K1w's and K2w's device code in one kernel, and nvcc and ptxas
+fuse multiplies and adds into FMAs differently in different kernels, so
+without it K3w and K1w -> K2w round apart in late Mehrotra iterations.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "build" / "lbmpc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+
+WIDE_FLAGS = ("-fmad=false",)
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -45,12 +52,15 @@ class CudaKernel:
     """One kernel: its source's library, its build, its C entry
     `<name>_launch` and the count of launches made through it (`launches`,
     a plain integer that the wrapper bumps once per kernel launch and
-    nowhere else). `source` names the .cu file when it is not `<name>.cu`."""
+    nowhere else). `source` names the .cu file when it is not `<name>.cu`;
+    `flags` are nvcc flags beyond NVCC_FLAGS."""
 
-    def __init__(self, name: str, argtypes: list, source: str | None = None):
+    def __init__(self, name: str, argtypes: list, source: str | None = None,
+                 flags: tuple = ()):
         self.name = name
         self.source = CSRC / f"{source or name}.cu"
         self.argtypes = argtypes
+        self.flags = tuple(flags)
         self.launches = 0
         self._fn = None
         self._err = None
@@ -59,11 +69,12 @@ class CudaKernel:
         # the shared device headers (csrc/*.cuh) are part of every source
         text = self.source.read_bytes() + b"".join(
             p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        flags = " ".join(NVCC_FLAGS + self.flags)
+        digest = hashlib.sha256(text + flags.encode()).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
 
     def build_command(self, out: pathlib.Path, verbose: bool = False) -> list:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *self.flags, "-o", str(out), str(self.source)]
         if verbose:
             cmd[1:1] = ["-Xptxas", "-v"]
         return cmd

@@ -23,10 +23,10 @@ from lbmpc_tpu_torch.controllers.lbmpc import (make_residual_and_jac,
                                                residual_rows)
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.oracle import DataWindow
-from lbmpc_tpu_torch.ops._cuda import I, P, CudaKernel, check, ptr
+from lbmpc_tpu_torch.ops._cuda import WIDE_FLAGS, I, P, CudaKernel, check, ptr
 
 KERNEL = CudaKernel("gn_phase", [P] * 9 + [I, I, I, P])
-KERNEL_WIDE = CudaKernel("gn_wide", [P] * 9 + [I, I, I, I, P])
+KERNEL_WIDE = CudaKernel("gn_wide", [P] * 9 + [I, I, I, I, P], flags=WIDE_FLAGS)
 NZ_MAX, NZ_MAX_WIDE = 32, 128   # csrc/gn_body.cuh, csrc/gn_wide_body.cuh kNzMax
 
 # constant block offsets (csrc/gn_body.cuh and gn_wide_body.cuh enums)

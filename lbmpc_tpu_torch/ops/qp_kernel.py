@@ -23,10 +23,11 @@ import torch
 import torch.nn.functional as F_
 
 from lbmpc_tpu_torch.device import resolve_device
-from lbmpc_tpu_torch.ops._cuda import F, I, P, CudaKernel, check, ptr
+from lbmpc_tpu_torch.ops._cuda import WIDE_FLAGS, F, I, P, CudaKernel, check, ptr
 
 KERNEL = CudaKernel("mehrotra_h", [P] * 10 + [I, I, I, I, F, F, F, P])
-KERNEL_WIDE = CudaKernel("mehrotra_h_wide", [P] * 10 + [I, I, I, I, F, F, F, P])
+KERNEL_WIDE = CudaKernel("mehrotra_h_wide", [P] * 10 + [I, I, I, I, F, F, F, P],
+                         flags=WIDE_FLAGS)
 KERNEL_SHARED = CudaKernel("mehrotra", [P] * 7 + [I, I, I, I, F, F, P])
 
 BIG = 1e6           # ratio-test sentinel (pallas_ipm.py:34)

@@ -1,8 +1,9 @@
-"""Batched closed-loop receding-horizon harness.
+"""Closed-loop receding-horizon harness, batched.
 
-Port of lbmpc_tpu/runtime/closed_loop.run_closed_loop_batched: the whole
-cohort advances step by step with a batch-level solver (a Python loop over
-the steps; every step's tensors stay on the solver's device).
+Port of lbmpc_tpu/runtime/closed_loop: run_closed_loop_batched advances the
+whole cohort step by step with a batch-level solver (a Python loop over the
+steps; every step's tensors stay on the solver's device); run_closed_loop is
+the single-scenario episode, a cohort of one.
 
 Step semantics (fmincon family, ref: functions/ocpLBMPC.m):
   1. dx = x - x_wp
@@ -90,3 +91,38 @@ def run_closed_loop_batched(
         art_history=torch.stack(art_h, dim=1),
         solver_converged=torch.stack(conv_h, dim=1),
         final_window=window, final_x=x, final_z=z_ws)
+
+
+def run_closed_loop(
+    solve_fn: Callable,       # (dx (B,n), window, z_ws (B,nz)) -> (z, converged), batched
+    plant_step: Callable,     # (x_abs (B,n), u_abs (B,m)) -> x_abs', batched
+    warm_start_fn: Callable,  # (z, dx_used, dx_next, window) -> z_ws, batched
+    Ks: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    Mtheta_x: torch.Tensor,   # LAMBDA (n, nth), for the artificial-reference log
+    x_wp: torch.Tensor,
+    u_wp: torch.Tensor,
+    dx_init: torch.Tensor,    # (n,)
+    z0: torch.Tensor,         # (nz,)
+    window0: DataWindow,      # one lane's window (no lane axis)
+    iterations: int,
+    learn: bool = True,
+    log_post_state: bool = True,
+) -> ClosedLoopResult:
+    """One scenario's episode (ref: run_closed_loop): the cohort of one lane
+    through run_closed_loop_batched, with the lane axis taken off the
+    result: sys_history (iterations+1, n+m), art_history (iterations, m),
+    solver_converged (iterations,). The solver, plant and warm start take
+    the port's batched forms. log_post_state picks the reference scripts'
+    logging convention: ocpLMPC/ocpNMPC log the state after the step
+    (ocpLMPC.m:33-37), ocpLBMPC the state before it (ocpLBMPC.m:37-40)."""
+    res = run_closed_loop_batched(
+        solve_fn, plant_step, warm_start_fn, Ks, A, B, Mtheta_x, x_wp, u_wp,
+        dx_init[None], z0[None], DataWindow(*(a[None] for a in window0)),
+        iterations, learn=learn, log_post_state=log_post_state)
+    return ClosedLoopResult(
+        sys_history=res.sys_history[0], art_history=res.art_history[0],
+        solver_converged=res.solver_converged[0],
+        final_window=DataWindow(*(a[0] for a in res.final_window)),
+        final_x=res.final_x[0], final_z=res.final_z[0])

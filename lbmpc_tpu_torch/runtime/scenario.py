@@ -1,17 +1,21 @@
-"""Scenario assembly: preset -> host matrices -> fleet episode on the device.
+"""Scenario assembly: preset -> host matrices -> solver and episodes.
 
 Port of lbmpc_tpu/runtime/scenario.py: `build_scenario` does the host setup
 (DLTI, matOCP synthesis, the constraint set, the condensed QP, the
 Gauss-Newton weights) of an LBMPC or LMPC preset of the fmincon, casadi or
-casadi_k family and builds no solver; `build_fleet_episode` runs a
-fmincon-family cohort through the batch-level SQP (ref:
-examples/LBMPC_RunExample.m:10-107, DMS_LBMPC_casadi.m:13-160). The
-single-scenario episodes are not ported.
+casadi_k family, and its Scenario builds, at first use, the per-problem
+solver (controllers/lmpc on ops/ipm, or controllers/lbmpc.make_lbmpc_solver)
+and the single-scenario episodes on the `condensed` backend (ref:
+examples/LBMPC_RunExample.m:10-107, DMS_LBMPC_casadi.m:13-160).
+`build_fleet_episode` runs a fmincon-family cohort through the batch-level
+SQP. The NMPC presets (ROADMAP §1 item 9) and the stage-wise `sparse*`
+backends (item 10) are not ported and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -20,11 +24,14 @@ from lbmpc_tpu_torch.config import ScenarioConfig, make_preset
 from lbmpc_tpu_torch.controllers.condensed import (CondensedQP, build_casadi_dms,
                                                    build_casadi_dms_k,
                                                    build_fmincon_lmpc)
-from lbmpc_tpu_torch.controllers.lbmpc import LBMPCWeights
+from lbmpc_tpu_torch.controllers.lbmpc import (LBMPCWeights, make_casadi_warm_start,
+                                               make_lbmpc_solver)
+from lbmpc_tpu_torch.controllers.lmpc import make_lmpc_solver
 from lbmpc_tpu_torch.device import resolve_device
-from lbmpc_tpu_torch.models.mgcm import mg2_dlti, mg2_ode, mgcm_dlti, rk23_step
-from lbmpc_tpu_torch.oracle import init_window
-from lbmpc_tpu_torch.runtime.closed_loop import (ClosedLoopResult,
+from lbmpc_tpu_torch.models.mgcm import (mg2_dlti, mg2_ode, mgcm_dlti, rk4_step,
+                                         rk23_step)
+from lbmpc_tpu_torch.oracle import DataWindow, init_window
+from lbmpc_tpu_torch.runtime.closed_loop import (ClosedLoopResult, run_closed_loop,
                                                  run_closed_loop_batched)
 from lbmpc_tpu_torch.sets.terminal import (ConstraintSet, get_cons,
                                            get_cons_poly, get_cons_robust_ks)
@@ -33,7 +40,16 @@ from lbmpc_tpu_torch.synthesis import OCPMatrices, mat_ocp
 
 @dataclasses.dataclass(frozen=True)
 class Scenario:
-    """Host-side scenario: matrices, constraint set, condensed QP, weights."""
+    """Assembled scenario: the host matrices, constraint set, condensed QP
+    and weights, and — built at first use on `device` — the per-step solver
+    and the episodes:
+    - solve(dx (B, n), window, z_ws (B, nz)) -> (z, converged), batched;
+    - episode_from(dx_init (n,), window0, z0 (nz,), steps=cfg.iterations),
+      episode_with_window(dx_init, window0) and episode(dx_init): one
+      scenario's ClosedLoopResult (histories without a lane axis);
+    - run(dx_init=None) and run_batch(dx_inits (B, n)).
+    The solver and episodes run in the preset's dtype (float32, or float64
+    for "float64" and "mixed")."""
 
     cfg: ScenarioConfig
     A: np.ndarray
@@ -42,19 +58,122 @@ class Scenario:
     cs: ConstraintSet
     qp: CondensedQP
     w: LBMPCWeights
+    ipm_iters: int | None = None
+    device: object = None
 
     @property
     def nz(self) -> int:
         return self.qp.nz
 
+    @functools.cached_property
+    def _episode_parts(self) -> dict:
+        return _episode_parts(self)
 
-def build_scenario(name_or_cfg) -> Scenario:
-    """Host setup of an LBMPC or LMPC preset (no solver is built)."""
+    @property
+    def solve(self):
+        return self._episode_parts["solve"]
+
+    def episode_from(self, dx_init, window0: DataWindow, z0,
+                     steps: int | None = None) -> ClosedLoopResult:
+        """Episode from an arbitrary carry (the resume path)."""
+        p = self._episode_parts
+        c = lambda a: torch.as_tensor(a, dtype=p["dtype"], device=p["device"])
+        return run_closed_loop(
+            p["solve"], p["plant"], p["warm"], *p["consts"], c(dx_init), c(z0),
+            window0.to(p["dtype"], p["device"]),
+            self.cfg.iterations if steps is None else steps, learn=p["learn"],
+            log_post_state=self.cfg.controller != "lbmpc")
+
+    def episode_with_window(self, dx_init, window0: DataWindow) -> ClosedLoopResult:
+        return self.episode_from(dx_init, window0, torch.zeros(self.nz))
+
+    def episode(self, dx_init) -> ClosedLoopResult:
+        p = self._episode_parts
+        return self.episode_with_window(
+            dx_init, init_window(self.cfg.oracle.q, d_out=self.cfg.oracle.d_out,
+                                 dtype=p["dtype"], device=p["device"]))
+
+    def _default_dx(self):
+        if self.cfg.family == "casadi":
+            return np.asarray(self.cfg.x_init_abs) - np.asarray(self.cfg.plant.x_wp)
+        return np.asarray(self.cfg.dx_init)
+
+    def run(self, dx_init=None) -> ClosedLoopResult:
+        """One episode; the default initial state follows the family's
+        convention (fmincon: delta dx_init; casadi: absolute x_init)."""
+        return self.episode(self._default_dx() if dx_init is None else dx_init)
+
+    def run_batch(self, dx_inits) -> ClosedLoopResult:
+        """Independent episodes from the rows of dx_inits (B, n), advanced
+        together (histories batch-first, as the reference's vmap)."""
+        p = self._episode_parts
+        dx = torch.as_tensor(dx_inits, dtype=p["dtype"], device=p["device"])
+        Bsz = dx.shape[0]
+        win = init_window(self.cfg.oracle.q, d_out=self.cfg.oracle.d_out,
+                          dtype=p["dtype"], batch=(Bsz,), device=p["device"])
+        return run_closed_loop_batched(
+            p["solve"], p["plant"], p["warm"], *p["consts"], dx,
+            torch.zeros(Bsz, self.nz, dtype=p["dtype"], device=p["device"]), win,
+            self.cfg.iterations, learn=p["learn"],
+            log_post_state=self.cfg.controller != "lbmpc")
+
+
+def _episode_parts(sc: Scenario) -> dict:
+    """The solver, plant, warm start and loop constants of build_scenario's
+    episodes (ref: scenario.py:165-272), on the condensed backend."""
+    cfg, p = sc.cfg, sc.cfg.plant
+    backend = cfg.solver.qp_backend
+    if backend != "condensed":
+        raise ValueError(f"qp_backend={backend!r}: the stage-wise Riccati backends "
+                         "are not ported yet (ROADMAP §1 item 10); use 'condensed'")
+    dev = resolve_device(sc.device)
+    mixed = cfg.solver.dtype == "mixed"
+    dtype = torch.float32 if cfg.solver.dtype == "float32" else torch.float64
+    ipm = sc.ipm_iters or cfg.solver.ipm_iters
+    plant_ode = mg2_ode if p.model == "mg2" else None
+    if cfg.family == "fmincon":
+        plant = lambda x, u: rk23_step(x, u[:, 0], p.ts, ode=plant_ode)
+    else:
+        plant = lambda x, u: rk4_step(x, u[:, 0], p.ts, substeps=1, ode=plant_ode)
+    warm = lambda z, dx_used, dx_next, window: z
+    if cfg.family == "casadi":
+        warm = make_casadi_warm_start(sc.qp, sc.A, sc.B, sc.ocp.Ks, dtype=dtype, device=dev)
+    if cfg.controller == "lmpc":
+        lin_solve = make_lmpc_solver(sc.qp, ipm_iters=ipm, dtype=dtype, mixed=mixed,
+                                     device=dev)
+
+        def solve(dx, window, z_ws):
+            z, sol = lin_solve(dx)
+            return z, sol.converged
+
+        # LMPC ignores the window; the MX_LBMPC variant still collects data
+        learn = cfg.collect_data
+    else:
+        solve = make_lbmpc_solver(
+            sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, family=cfg.family, delta=p.ts,
+            bandwidth=cfg.oracle.bandwidth, ridge=cfg.oracle.ridge,
+            dx_ref=np.asarray(cfg.dx_ref), sqp_iters=cfg.solver.sqp_iters, ipm_iters=ipm,
+            dtype=dtype, mixed=mixed, device=dev)
+        learn = cfg.learn_online
+    t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=dtype, device=dev)
+    Ks_eff = (sc.ocp.Ks if cfg.family in ("fmincon", "casadi_k")
+              else np.zeros_like(sc.ocp.Ks))
+    consts = (t(np.atleast_2d(Ks_eff)), t(sc.A), t(sc.B), t(sc.ocp.LAMBDA), t(p.x_wp),
+              t([p.u_wp]))
+    return dict(solve=solve, plant=plant, warm=warm, learn=learn, consts=consts,
+                dtype=dtype, device=dev)
+
+
+def build_scenario(name_or_cfg, ipm_iters: int | None = None, device=None) -> Scenario:
+    """An LBMPC or LMPC preset: the host setup now, the solver and episodes
+    (on `device`, CUDA unless named) at first use. ipm_iters overrides the
+    preset's IPM iteration count, as in the reference."""
     cfg = (name_or_cfg if isinstance(name_or_cfg, ScenarioConfig)
            else make_preset(name_or_cfg))
     if cfg.controller not in ("lbmpc", "lmpc"):
         raise ValueError("the port's scenarios cover LBMPC and LMPC presets; "
-                         f"controller={cfg.controller!r} is not ported yet")
+                         f"controller={cfg.controller!r} is not ported yet "
+                         "(ROADMAP §1 item 9)")
     p = cfg.plant
     mg2 = p.model == "mg2"
     A, B, C, _ = (mg2_dlti if mg2 else mgcm_dlti)(p.ts)
@@ -88,7 +207,8 @@ def build_scenario(name_or_cfg) -> Scenario:
                               terminal_at=cfg.ocp.terminal_at,
                               tighten_first_step=cfg.ocp.tighten_first_step)
     w = LBMPCWeights.make(ocp.Q, ocp.R, ocp.P, ocp.T, ocp.LAMBDA, ocp.PSI)
-    return Scenario(cfg=cfg, A=A, B=B, ocp=ocp, cs=cs, qp=qp, w=w)
+    return Scenario(cfg=cfg, A=A, B=B, ocp=ocp, cs=cs, qp=qp, w=w, ipm_iters=ipm_iters,
+                    device=device)
 
 
 def build_fleet_episode(name_or_cfg, ipm_iters=None,
@@ -99,7 +219,6 @@ def build_fleet_episode(name_or_cfg, ipm_iters=None,
                         alphas=None,
                         qp_warm: bool = False,
                         warm_chain: bool = False,
-                        repair_backend: str | None = None,
                         device=None,
                         plain: bool = False):
     """Batch-level fmincon-family LBMPC episode (float32).
@@ -111,9 +230,9 @@ def build_fleet_episode(name_or_cfg, ipm_iters=None,
     the kernel routes — "pallas" (plain GN phase + K2), "pallas_full" (K1 +
     K2) and "pallas_mono" (K3, which ignores qp_warm) — take the ladder
     ((1,), (1, .5, .25)) and qp_warm. backend="hybrid" adds the compacted
-    per-step repair (1 GN x 8 IPM, seeded at the fused iterate) with
-    repair_backend "fused" on "pallas_full" and "vmapped" (not ported yet:
-    it raises) otherwise, unless `repair_backend` names one. warm_chain
+    per-step repair (1 GN x 8 IPM, seeded at the fused iterate): the fused
+    repair on "pallas_full", the vmapped one (controllers/lbmpc
+    .make_lbmpc_solver on ops/ipm) on every other route. warm_chain
     threads K2's interior state across steps (needs qp_warm on "pallas" or
     "pallas_full"). plain=True runs
     the kernels' plain versions on the same device — the reference route for
@@ -144,8 +263,7 @@ def build_fleet_episode(name_or_cfg, ipm_iters=None,
         factory = make_lbmpc_solver_hybrid
         extra.update(repair_frac=repair_frac, repair_sqp_iters=1,
                      repair_ipm_iters=8, repair_warm="fused",
-                     repair_backend=repair_backend or (
-                         "fused" if qp_kernel == "pallas_full" else "vmapped"))
+                     repair_backend="fused" if qp_kernel == "pallas_full" else "vmapped")
     else:
         factory = make_lbmpc_solver_fused
     solver = factory(

@@ -146,15 +146,22 @@ def test_casadi_xla_route_matches_reference(monkeypatch):
 
 def test_kernel_route_refuses_the_flagship(dms):
     """The one kernel route that refuses the flagship is pallas_mono: at the
-    DMS shape the reference's own fused kernel exceeds its VMEM budget, and
-    the message says so. pallas_full (K1w + K2w) and pallas (K2w) build at
-    nz=101. The fmincon family at nz=101 has 1606 constraint rows, beyond the
-    QP kernels' 1024 (as the reference's), so every kernel route refuses it
-    with a clear ValueError instead of computing."""
+    DMS shape (q=100) the reference's own fused kernel exceeds its VMEM
+    budget, and the first solve raises with the reference's message, as the
+    reference raises when its kernel is first called with the window.
+    pallas_full (K1w + K2w) and pallas (K2w) build at nz=101. The fmincon
+    family at nz=101 has 1606 constraint rows, beyond the QP kernels' 1024
+    (as the reference's), so every kernel route refuses it with a clear
+    ValueError instead of computing."""
     _, ts = dms
-    with pytest.raises(ValueError, match="pallas_mono.*VMEM"):
-        make_lbmpc_solver_fused(ts.qp, ts.A, ts.B, ts.ocp.Ks, ts.w, family="casadi",
-                                qp_kernel="pallas_mono", device="cpu")
+    mono = make_lbmpc_solver_fused(ts.qp, ts.A, ts.B, ts.ocp.Ks, ts.w, family="casadi",
+                                   qp_kernel="pallas_mono", device="cpu")
+    from lbmpc_tpu_torch.oracle import init_window as t_window
+
+    win = t_window(ts.cfg.oracle.q, batch=(2,), dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match=r"scoped-VMEM need 59\.3M \(nz_p=104, q_p=104, "
+                       r"tile=128, ipm=True\) exceeds the 60M grant budget"):
+        mono(torch.zeros(2, 4), win, torch.zeros(2, ts.nz))
     for route in ("pallas_full", "pallas"):
         s = make_lbmpc_solver_fused(ts.qp, ts.A, ts.B, ts.ocp.Ks, ts.w, family="casadi",
                                     qp_kernel=route, device="cpu")

@@ -87,12 +87,13 @@ def test_closed_loop_without_learning_keeps_the_window():
 
 
 def test_xla_route_hybrid_fleet_matches_reference(reference):
-    """The xla route with the per-step repair through the same machinery
-    (repair_backend="fused", asked for by name)."""
+    """The xla route's hybrid fleet as the reference builds it: the per-step
+    repair on the vmapped backend (the per-problem float32 SQP, 1 GN x 8
+    IPM, seeded at the fused iterate)."""
     sc, run = t_scenario.build_fleet_episode(
-        _small(lt.make_preset), backend="hybrid", ipm_iters=(16, 8),
-        repair_backend="fused", device="cpu")
+        _small(lt.make_preset), backend="hybrid", ipm_iters=(16, 8), device="cpu")
     assert run.solver.fused.qp_kernel == "xla"
+    assert (run.solver.repair_backend, run.solver.repair_warm) == ("vmapped", "fused")
     res = run(DX0)
     assert float(res.solver_converged.float().mean()) == 1.0
     diff = np.abs(res.sys_history.numpy() - np.asarray(reference.sys_history)).max()
@@ -147,17 +148,24 @@ def test_mono_fleet_matches_reference_xla_fleet(monkeypatch):
 
 
 def test_fleet_rejects_what_is_not_ported():
-    """What stays unported raises: the hybrid fleet's default repair on the
-    xla route (vmapped), the warm chain without qp_warm or off the kernel
-    route, the casadi family's episode, and the NMPC presets' setup."""
+    """What stays unported or unsupported raises: the warm chain without
+    qp_warm or off the kernel route, the casadi family's fleet episode, the
+    NMPC presets' setup and the stage-wise sparse backends. The fleet's
+    signature is the reference's: no repair_backend keyword (the route
+    picks the repair)."""
     cfg = _small(lt.make_preset)
-    with pytest.raises(ValueError, match="not ported"):
-        t_scenario.build_fleet_episode(cfg, backend="hybrid", device="cpu")
+    with pytest.raises(TypeError, match="repair_backend"):
+        t_scenario.build_fleet_episode(cfg, backend="hybrid", repair_backend="fused",
+                                       device="cpu")
     with pytest.raises(ValueError, match="qp_warm"):
         t_scenario.build_fleet_episode(cfg, warm_chain=True, device="cpu")
     with pytest.raises(ValueError, match="kernel route"):
         t_scenario.build_fleet_episode(cfg, warm_chain=True, qp_warm=True, device="cpu")
     with pytest.raises(ValueError, match="fmincon"):
         t_scenario.build_fleet_episode(lt.make_preset("DMS_LBMPC_q100"), device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="item 9"):
         t_scenario.build_scenario(lt.make_preset("NMPC_N20"))
+    sparse = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
+                                                                 qp_backend="sparse"))
+    with pytest.raises(ValueError, match="item 10"):
+        t_scenario.build_scenario(sparse, device="cpu").run()

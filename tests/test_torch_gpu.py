@@ -1,7 +1,9 @@
 """PyTorch port on the card: K1 (gn_phase), K1w (gn_wide), K2 (mehrotra_h),
-K2w (mehrotra_h_wide), K3 (gn_mehrotra), K4 (mehrotra), K5a/b/c (chol) and
-K6a/b (chol_blocked) against their plain versions on the same CUDA tensors,
-and the routes of the fused solve against their plain routes. Marked `gpu`; without CUDA every test skips. On a machine with
+K2w (mehrotra_h_wide), K3 (gn_mehrotra), K3w (gn_mehrotra_wide), K4
+(mehrotra), K5a/b/c (chol) and K6a/b (chol_blocked) against their plain
+versions on the same CUDA tensors (K3 and K3w also against the two-launch
+composition, bit for bit), and the routes of the fused solve against their
+plain routes. Marked `gpu`; without CUDA every test skips. On a machine with
 an NVIDIA GPU and nvcc (no JAX needed):
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -401,3 +403,38 @@ def test_fused_solve_wide_routes(cuda, wide):
         _as_close(zx, zk, zp, slack=2)
         assert (zk - zp)[:, 0].abs().max().item() < 5e-2
         assert abs(ck.float().mean().item() - cp.float().mean().item()) <= 0.05
+
+
+@pytest.mark.parametrize("family", ["fmincon", "casadi"])
+@pytest.mark.parametrize("nz", [33, 41, 64, 128])
+def test_mono_wide_kernel_equals_k1w_k2w(cuda, family, nz):
+    """K3w (gn_mehrotra_wide) against K1w -> step_rhs -> K2w cold on the same
+    inputs, which run the same device code built the same way: e, g, d and
+    mu equal bit for bit, at 16 Mehrotra iterations; e and g within the K1w
+    class of the plain version. LBMPC_N40 / the DMS preset at N = nz - 1,
+    q=100; where the constraint stack exceeds the kernels' 1024 rows (nz=128
+    in both families) the kernel is held on its first 1024 rows."""
+    name = "LBMPC_N40" if family == "fmincon" else "DMS_LBMPC_q100"
+    cfg = lt.make_preset(name)
+    cfg = dataclasses.replace(cfg, ocp=dataclasses.replace(cfg.ocp, N=nz - 1))
+    sc = build_scenario(cfg)
+    kw = dict(family=family, delta=cfg.plant.ts, bandwidth=cfg.oracle.bandwidth,
+              ridge=cfg.oracle.ridge, dx_ref=np.asarray(cfg.dx_ref))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32)[:1024], device=cuda)
+    G, h0, Hp = t(sc.qp.G), t(sc.qp.h0), t(sc.qp.Hp)
+    gn = GNPhase(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, device=cuda, **kw)
+    mono = MonoPhase(gn, G, h0, Hp, 16)
+    assert mono.wide and not mono.narrow
+    z, dx, win = _inputs(96, nz, cuda, seed=21)
+    n0 = mono_kernel.KERNEL_WIDE.launches
+    e, d, mu, g = mono(z, dx, win)
+    assert mono_kernel.KERNEL_WIDE.launches == n0 + 1
+    e1, H1, g1 = gn(z, dx, win)
+    x2, mu2, _ = mehrotra_h(G, H1, g1, step_rhs(h0, Hp, G, dx, z), 16)
+    assert torch.equal(e, e1) and torch.equal(g, g1)
+    assert torch.equal(d, x2) and torch.equal(mu, mu2)
+    ep, _, _, gp = mono.plain(z, dx, win)
+    hmax = H1.abs().max().item()
+    assert (e - ep).abs().max().item() <= 1e-5 * hmax
+    assert (g - gp).abs().max().item() <= 1e-5 * hmax
+    assert bool(d.isfinite().all())

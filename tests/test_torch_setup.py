@@ -150,7 +150,12 @@ def test_port_imports_no_jax_and_no_reference_package():
         "assert not bad, bad\n"
         "from lbmpc_tpu_torch.runtime.scenario import build_scenario\n"
         "assert build_scenario('DMS_LMPC_K').nz == 101\n"
-        "for m in ('ops.chol_kernel', 'ops.ipm_fused', 'runtime.scenario'):\n"
+        "import torch\n"
+        "z, conv = build_scenario('LMPC_N20', device='cpu').solve(\n"
+        "    torch.tensor([[-0.35, -0.4, 0.0, 0.0]]), None, None)\n"
+        "assert bool(conv.all()) and z.dtype == torch.float64\n"
+        "for m in ('ops.chol_kernel', 'ops.ipm_fused', 'runtime.scenario', 'ops.ipm',\n"
+        "          'ops.chol', 'ops.mono_kernel', 'controllers.sqp', 'controllers.lmpc'):\n"
         "    assert 'lbmpc_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'lbmpc_tpu' or m.startswith('lbmpc_tpu.')]\n"
@@ -158,7 +163,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 17
+    assert int(out.stdout.split()[0]) >= 21
 
 
 def test_tf32_is_off():

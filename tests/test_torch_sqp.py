@@ -209,31 +209,28 @@ def test_xla_route_hybrid_matches_reference(setup, monkeypatch):
 
 
 def test_unported_routes_raise(setup, monkeypatch):
-    """What stays unported raises ValueError: pallas_mono above nz 32 (K3)
-    and for the casadi family, the vmapped repair and the ws-seeded repair,
-    jac_mode="jacfwd". What the wide kernels (K1w, K2w) and K6 ported now
-    builds: pallas at nz=41, pallas_full for the casadi family, and the
-    xla route with LBMPC_CHOL_BLOCKED=1 at n_p >= 32."""
+    """What stays unported raises ValueError: jac_mode="jacfwd", and a
+    repair backend or seed the reference does not have. What is ported now
+    builds: pallas_mono above nz 32 and for the casadi family (K3w), the
+    vmapped repair with either seed and the ws-seeded fused repair, pallas
+    at nz=41, pallas_full for the casadi family, and the xla route with
+    LBMPC_CHOL_BLOCKED=1 at n_p >= 32."""
     cfg, sc, qp, w, ts, data, kw = setup
     ts40 = t_build(dataclasses.replace(
         ts.cfg, ocp=dataclasses.replace(ts.cfg.ocp, N=40)))
     assert ts40.nz == 41
     for route in ("pallas", "pallas_mono"):
         _port(ts, qp_kernel=route, **kw)      # nz=13: ported
-    assert _port(ts40, qp_kernel="pallas", **kw).qp_kernel == "pallas"   # K2w
-    with pytest.raises(ValueError, match="not ported"):
-        _port(ts40, qp_kernel="pallas_mono", **kw)
-    _port(ts, qp_kernel="pallas", **{**kw, "family": "casadi"})
-    with pytest.raises(ValueError, match="not ported"):
-        _port(ts, qp_kernel="pallas_mono", **{**kw, "family": "casadi"})
-    with pytest.raises(ValueError, match="not ported"):
-        _port(ts, t_sqp.make_lbmpc_solver_hybrid, repair_backend="vmapped",
-              repair_warm="fused", **kw)
-    with pytest.raises(ValueError, match="not ported"):
-        _port(ts, t_sqp.make_lbmpc_solver_hybrid, repair_backend="fused",
-              repair_warm="ws", **kw)
-    with pytest.raises(ValueError, match="not ported"):
-        _port(ts, t_sqp.make_lbmpc_solver_hybrid, qp_kernel="xla", **kw)
+        assert _port(ts40, qp_kernel=route, **kw).qp_kernel == route   # K2w, K3w
+        _port(ts, qp_kernel=route, **{**kw, "family": "casadi"})
+    for backend, seed in (("vmapped", "fused"), ("vmapped", "ws"), ("fused", "ws")):
+        h = _port(ts, t_sqp.make_lbmpc_solver_hybrid, repair_backend=backend,
+                  repair_warm=seed, **kw)
+        assert (h.repair_backend, h.repair_warm) == (backend, seed)
+    assert _port(ts, t_sqp.make_lbmpc_solver_hybrid, qp_kernel="xla",
+                 **kw).repair_backend == "vmapped"
+    with pytest.raises(ValueError, match="repair_backend"):
+        _port(ts, t_sqp.make_lbmpc_solver_hybrid, repair_backend="scan", **kw)
     with pytest.raises(ValueError, match="not ported"):
         _port(ts, qp_kernel="xla", jac_mode="jacfwd", **kw)
     casadi_full = _port(ts, **{**kw, "family": "casadi"})    # pallas_full, K1w
