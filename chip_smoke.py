@@ -33,7 +33,10 @@ counts set to 0 just before it and read just after:
   MATLAB runs (tests/golden): the float32 pallas_mono hybrid and the float64
   per-problem episodes at N=50.
 It times the kernels, their plain versions, the library yardsticks, the
-solves and the fleet steps with CUDA events.
+solves and the fleet steps with CUDA events, prints K2w's and K3w's time
+split by phase of a Mehrotra iteration (phases 23 and 24, from the
+phase-clock builds of tools/k2w_split.py), and holds the golden episode's
+8 identical lanes identical for all its steps (phase 29).
 
     python3 chip_smoke.py                 # every phase (needs one card)
     python3 chip_smoke.py --stop-after 3  # build + K1/K2 checks only
@@ -127,32 +130,39 @@ def gn_work(B: int, N_: int, q: int, ne: int, nz: int, n_const: int):
 QP_ROW_OPS = 47
 
 
-def qp_work(B: int, mI: int, nz: int, iters: int, warm_in: bool, warm_out: bool):
+def qp_work(B: int, mI: int, nz: int, iters: int, warm_in: bool, warm_out: bool, G=None):
     """(bytes, float32 operations) of one Mehrotra solve: G, H, g, h (and a
     warm state) read once, x, mu (and the state) written once. Per
-    iteration: G'diag(d)G as d scaling G's rows once (mI nz) and a multiply
-    and an add per row and unique entry; six G / G' products (G'z, Gx, and
-    G't, G dx in each of the two KKT solves), 2 mI nz each; the per-row
-    operations (QP_ROW_OPS); the factorization (nz^3 / 3); four triangular
-    solves and Hx (nz^2 each, Hx 2 nz^2)."""
+    iteration: G'diag(d)G as d scaling G's entries once and a multiply and
+    an add per row and entry pair of the lower triangle; six G / G' products
+    (G'z, Gx, and G't, G dx in each of the two KKT solves), a multiply and
+    an add per entry of G each; the per-row operations (QP_ROW_OPS); the
+    factorization (nz^3 / 3); four triangular solves and Hx (nz^2 each, Hx
+    2 nz^2). Without G the count is dense (every entry, every pair); with
+    G (numpy) it is structural, what the reference's own roofline charges
+    (pallas_ipm.py assembly_mac_ratio): G's nonzeros, and each row's pairs
+    of nonzeros."""
     by = 4 * (mI * nz + B * (nz * nz + nz + mI + nz + 1)
               + (2 * B * mI if warm_in else 0) + (2 * B * mI if warm_out else 0))
-    pairs = nz * (nz + 1) // 2
-    per_it = (mI * nz + 2 * mI * pairs + 12 * mI * nz + QP_ROW_OPS * mI
-              + nz ** 3 // 3 + 6 * nz * nz)
+    if G is None:
+        nnz, pairs = mI * nz, mI * nz * (nz + 1) // 2
+    else:
+        per_row = (np.asarray(G) != 0).sum(axis=1).astype(np.int64)
+        nnz, pairs = int(per_row.sum()), int((per_row * (per_row + 1) // 2).sum())
+    per_it = nnz + 2 * pairs + 12 * nnz + QP_ROW_OPS * mI + nz ** 3 // 3 + 6 * nz * nz
     return by, B * iters * per_it
 
 
 def mono_work(B: int, N_: int, q: int, ne: int, nz: int, n_const: int, mI: int,
-              iters: int):
+              iters: int, G=None):
     """(bytes, float32 operations) of one K3 call: z, dx0, the window, the
     constants, G, h0 and Hp read once, e, d, mu and g written once (H stays
     in the block); the GN phase's operations (gn_work), h's, and one cold
-    Mehrotra solve's (qp_work)."""
+    Mehrotra solve's (qp_work; structural with G)."""
     n = 4
     by = 4 * (B * (nz + n + q * 8 + ne + 2 * nz + 1) + n_const + mI * (nz + 1 + n))
     fl = (gn_work(B, N_, q, ne, nz, n_const)[1] + B * mI * 2 * (n + nz)
-          + qp_work(B, mI, nz, iters, False, False)[1])
+          + qp_work(B, mI, nz, iters, False, False, G)[1])
     return by, fl
 
 
@@ -271,7 +281,11 @@ def run_phases(dev, card: str, kind: str, args) -> int:
                    qp_kernel.KERNEL_SHARED, *chol_kernel.KERNELS, gn_kernel.KERNEL_WIDE,
                    qp_kernel.KERNEL_WIDE, *chol_kernel.BLOCKED_KERNELS,
                    mono_kernel.KERNEL_WIDE)
-    logs = _cuda.build_all(all_kernels, verbose=True)
+    # K2w's and K3w's phase-clock builds (tools/k2w_split.py), for the split
+    # that phases 23 and 24 print: built beside the package's, never launched
+    # on its paths
+    logs = _cuda.build_all(all_kernels + tuple(split_tool().clocked_kernels().values()),
+                           verbose=True)
     for name, text in logs.items():
         for line in text.splitlines():
             if any(k in line for k in ("registers", "spill", "smem", "error",
@@ -1189,7 +1203,7 @@ def wide_phases(dev, tag: str, args, kernels: dict, dx_init) -> None:
     from lbmpc_tpu_torch.controllers.sqp_fused import make_lbmpc_solver_fused
     from lbmpc_tpu_torch.ops import chol_kernel as ck
     from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
-    from lbmpc_tpu_torch.ops.qp_kernel import mehrotra_h, mehrotra_h_plain, step_rhs
+    from lbmpc_tpu_torch.ops.qp_kernel import WidePlan, mehrotra_h, mehrotra_h_plain, step_rhs
     from lbmpc_tpu_torch.runtime.scenario import build_fleet_episode, build_scenario
 
     f32 = torch.float32
@@ -1337,16 +1351,18 @@ def wide_phases(dev, tag: str, args, kernels: dict, dx_init) -> None:
     # ---- phase 20: K2w against its plain version ---------------------------------
     log("phase 20: K2w mehrotra_h_wide vs plain on the QPs built from K1w's H and g")
     k2w_err = k2w_held = 0.0
-    qps = {}
+    qps, plans = {}, {}
     for fam, (c, s, _) in shapes.items():
         zz, dd, _ = gin[fam]
         G = f(s.qp.G)
         h = step_rhs(f(s.qp.h0), f(s.qp.Hp), G, dd, zz)
         qps[fam] = (G, *k1w[fam], h)
+        plans[fam] = WidePlan(G)
     for fam, it in (("casadi", 8), ("casadi", 16), ("fmincon", 8), ("fmincon", 16)):
         G, H, g, h = qps[fam]
+        pl = plans[fam]
         zero_counts()
-        x, mu, st = mehrotra_h(G, H, g, h, it, want_state=True)
+        x, mu, st = mehrotra_h(G, H, g, h, it, want_state=True, plan=pl)
         torch.cuda.synchronize()
         per = route_counts()
         xp, mup, _ = mehrotra_h_plain(G, H, g, h, it)
@@ -1360,11 +1376,11 @@ def wide_phases(dev, tag: str, args, kernels: dict, dx_init) -> None:
             d_all, d_held = f64_gates(name, x, mu, xp, mup, x64)
         k2w_err, k2w_held = max(k2w_err, d_all), max(k2w_held, d_held)
         xc, muc, _ = mehrotra_h(G, H, g, h, it, warm=(torch.clamp(h, min=1.0),
-                                                      torch.ones_like(h)))
+                                                      torch.ones_like(h)), plan=pl)
         require(torch_equal(xc, x) and torch_equal(muc, mu),
                 f"K2w cold_state warm-in equals the cold solve bit for bit ({fam}, {it} iters)")
         if it == 8:
-            xw, muw, _ = mehrotra_h(G, H, g, h, 2, warm=st)
+            xw, muw, _ = mehrotra_h(G, H, g, h, 2, warm=st, plan=pl)
             xwp, muwp, _ = mehrotra_h_plain(G, H, g, h, 2, warm=st)
             st64 = tuple(a.double() for a in st)
             f64_gates(f"K2w vs plain ({fam}, 2 iters warm from K2w's 8)", xw, muw, xwp, muwp,
@@ -1448,13 +1464,14 @@ def wide_phases(dev, tag: str, args, kernels: dict, dx_init) -> None:
         t[f"k1w_{fam}_plain"] = cuda_ms(lambda: gn.plain(*gin[fam]), reps=3)
     for fam in ("casadi", "fmincon"):
         G, H, g, h = qps[fam]
-        st = mehrotra_h(G, H, g, h, 8, want_state=True)[2]
+        pl = plans[fam]
+        st = mehrotra_h(G, H, g, h, 8, want_state=True, plan=pl)[2]
         for it in (16, 8):
-            t[f"k2w_{fam}_{it}"] = cuda_ms(lambda: mehrotra_h(G, H, g, h, it, want_state=True),
-                                           reps=3)
+            t[f"k2w_{fam}_{it}"] = cuda_ms(lambda: mehrotra_h(G, H, g, h, it, want_state=True,
+                                                              plan=pl), reps=3)
             t[f"k2w_{fam}_{it}_plain"] = cuda_ms(lambda: mehrotra_h_plain(G, H, g, h, it),
                                                  reps=2, warmup=1)
-        t[f"k2w_{fam}_2"] = cuda_ms(lambda: mehrotra_h(G, H, g, h, 2, warm=st), reps=5)
+        t[f"k2w_{fam}_2"] = cuda_ms(lambda: mehrotra_h(G, H, g, h, 2, warm=st, plan=pl), reps=5)
     M, b = cases[f"n={ds.nz} B={DMS_BATCH}"][1]
     lib = lambda: torch.cholesky_solve(b[..., None], torch.linalg.cholesky_ex(M)[0])
     chol_t = {"chol_factor_solve_blocked": (lambda: ck.chol_factor_solve_blocked(M, b),
@@ -1484,18 +1501,76 @@ def wide_phases(dev, tag: str, args, kernels: dict, dx_init) -> None:
     ne = (ns.qp.N - 2) * 5 + 8
     mI_n = ns.qp.G.shape[0]
     b1 = bound_ms(*gn_work(COHORT, ns.qp.N, Q, ne, ns.nz, gns["fmincon"].cst.numel()))
-    b2 = bound_ms(*qp_work(COHORT, mI_n, ns.nz, IPM_SCHED[0], False, True))
+    # K2w's bounds, structural (G's nonzeros: the work the kernel's data
+    # needs) and dense
+    b2, b2d = (bound_ms(*qp_work(COHORT, mI_n, ns.nz, IPM_SCHED[0], False, True, G_))
+               for G_ in (ns.qp.G, None))
     kernels["gn_wide"].update(ms=t["k1w_fmincon"], plain_ms=t["k1w_fmincon_plain"],
                               bound_ms=b1[0], bound_by=b1[1])
     kernels["mehrotra_h_wide"].update(ms=t["k2w_fmincon_8"], plain_ms=t["k2w_fmincon_8_plain"],
-                                      bound_ms=b2[0], bound_by=b2[1])
+                                      bound_ms=b2[0], bound_by=b2[1], bound_ms_dense=b2d[0])
     dne = ds.qp.N * 5 + 8
     bd1 = bound_ms(*gn_work(DMS_BATCH, ds.qp.N, Q, dne, ds.nz, gns["casadi"].cst.numel()))
-    bd2 = {it: bound_ms(*qp_work(DMS_BATCH, ds.qp.G.shape[0], ds.nz, it, False, True))
-           for it in (16, 8)}
-    log(f"  bound K1w N40 cohort {b1[0]:.4f} ms ({b1[1]}), DMS {bd1[0]:.4f} ms ({bd1[1]}); "
-        f"K2w N40 8 iters {b2[0]:.4f} ms ({b2[1]}), DMS 16 iters {bd2[16][0]:.4f} ms, "
-        f"8 iters {bd2[8][0]:.4f} ms ({bd2[8][1]}) {tag}")
+    bd2 = {(it, kind): bound_ms(*qp_work(DMS_BATCH, ds.qp.G.shape[0], ds.nz, it, False, True,
+                                         G_))
+           for it in (16, 8) for kind, G_ in (("structural", ds.qp.G), ("dense", None))}
+    log(f"  bound K1w N40 cohort {b1[0]:.4f} ms ({b1[1]}), DMS {bd1[0]:.4f} ms ({bd1[1]}) "
+        f"{tag}")
+    log(f"  bound K2w structural / dense: N40 8 iters {b2[0]:.4f} / {b2d[0]:.4f} ms "
+        f"({b2[1]}); DMS 16 iters {bd2[(16, 'structural')][0]:.4f} / "
+        f"{bd2[(16, 'dense')][0]:.4f} ms, 8 iters {bd2[(8, 'structural')][0]:.4f} / "
+        f"{bd2[(8, 'dense')][0]:.4f} ms ({bd2[(8, 'structural')][1]}) {tag}")
+    split_k2w(dev, tag, [(f"DMS {it} iters", qps["casadi"], plans["casadi"], it, None)
+                         for it in (16, 8)]
+              + [("N40 8 iters", qps["fmincon"], plans["fmincon"], 8, None),
+                 ("N40 2 iters warm", qps["fmincon"], plans["fmincon"], 2,
+                  mehrotra_h(*qps["fmincon"], 8, want_state=True, plan=plans["fmincon"])[2])])
+
+
+def split_tool():
+    """tools/k2w_split.py: K2w's and K3w's phase-clock builds and readers."""
+    if str(ROOT / "tools") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tools"))
+    import k2w_split
+
+    return k2w_split
+
+
+def split_k2w(dev, tag: str, cases) -> None:
+    """Log K2w's time by phase on each (name, (G, H, g, h), plan, iters,
+    warm) case: one launch of the phase-clock build (its own launch count,
+    not the package kernel's), the share of a block's cycles per phase."""
+    from lbmpc_tpu_torch.ops import qp_kernel
+
+    tool = split_tool()
+    k = tool.clocked_kernels()["k2w"]
+    read = tool.reader(k)
+    package, qp_kernel.KERNEL_WIDE = qp_kernel.KERNEL_WIDE, k
+    try:
+        for name, (G, H, g, h), plan, it, warm in cases:
+            qp_kernel.mehrotra_h(G, H, g, h, it, warm=warm, want_state=True, plan=plan)
+            split = tool.read_split(read, min(g.shape[0], tool.CLOCK_BLOCKS), it)
+            log(f"  split K2w {name}: {tool.format_split(split)} {tag}")
+    finally:
+        qp_kernel.KERNEL_WIDE = package
+
+
+def split_k3w(dev, tag: str, cases) -> None:
+    """Log K3w's Mehrotra loop by phase on each (name, MonoPhase, inputs,
+    iters) case, as split_k2w does for K2w."""
+    from lbmpc_tpu_torch.ops import mono_kernel
+
+    tool = split_tool()
+    k = tool.clocked_kernels()["k3w"]
+    read = tool.reader(k)
+    package, mono_kernel.KERNEL_WIDE = mono_kernel.KERNEL_WIDE, k
+    try:
+        for name, mono, ins, it in cases:
+            mono(*ins)
+            split = tool.read_split(read, min(ins[0].shape[0], tool.CLOCK_BLOCKS), it)
+            log(f"  split K3w {name}: {tool.format_split(split)} {tag}")
+    finally:
+        mono_kernel.KERNEL_WIDE = package
 
 
 def family_inputs(seed: int, B: int, cfg, nz: int, device):
@@ -1608,17 +1683,22 @@ def mono_wide_phases(dev, tag: str, args, kernels: dict, cfg, dx_init) -> None:
         c, s, kw = shapes[fam]
         ne = (s.qp.N - 2 if fam == "fmincon" else s.qp.N) * 5 + 8
         for it in (16, 8):
-            b3w[(fam, it)] = bound_ms(*mono_work(B, s.qp.N, Q, ne, s.nz,
-                                                 monos[(fam, it)].gn.cst.numel(),
-                                                 s.qp.G.shape[0], it))
+            for kind, G_ in (("structural", s.qp.G), ("dense", None)):
+                b3w[(fam, it, kind)] = bound_ms(*mono_work(B, s.qp.N, Q, ne, s.nz,
+                                                           monos[(fam, it)].gn.cst.numel(),
+                                                           s.qp.G.shape[0], it, G_))
     for k, v in t.items():
         log(f"  time {k} = {v:.4f} ms {tag}")
-    log("  bound K3w " + ", ".join(f"{fam} {it} iters {b[0]:.4f} ms ({b[1]})"
-                                  for (fam, it), b in b3w.items()) + f" {tag}")
+    log("  bound K3w " + ", ".join(f"{fam} {it} iters {kind} {b[0]:.4f} ms ({b[1]})"
+                                  for (fam, it, kind), b in b3w.items()) + f" {tag}")
     kernels["gn_mehrotra_wide"].update(
         ms=t["k3w_fmincon_16"], plain_ms=t["k3w_fmincon_16_plain"],
-        bound_ms=b3w[("fmincon", 16)][0], bound_by=b3w[("fmincon", 16)][1],
-        ms_8_iters=t["k3w_fmincon_8"], bound_ms_8_iters=b3w[("fmincon", 8)][0])
+        bound_ms=b3w[("fmincon", 16, "structural")][0],
+        bound_by=b3w[("fmincon", 16, "structural")][1],
+        bound_ms_dense=b3w[("fmincon", 16, "dense")][0], ms_8_iters=t["k3w_fmincon_8"],
+        bound_ms_8_iters=b3w[("fmincon", 8, "structural")][0])
+    split_k3w(dev, tag, [(f"{fam} {it} iters", monos[(fam, it)], mono_in[fam], it)
+                         for fam, it in (("fmincon", 16), ("casadi", 16))])
     log(f"  phase 24 took {time.time() - t_phase:.1f} s")
     if args.stop_after < 25:
         return
@@ -1847,6 +1927,8 @@ def golden_phases(dev, tag: str) -> None:
             f"N50 f32 pallas_mono hybrid within the reference's envelope over {held} steps "
             "(max < 2e-2, first two states < 2e-3)")
     require(per["gn_mehrotra_wide"] == 2 * steps, f"N50 hybrid: {2 * steps} K3w launches")
+    require(not parted.numel(), f"N50 f32 pallas_mono hybrid: the {GOLDEN_B} identical lanes "
+            f"stay identical, bit for bit, over all {steps} steps")
 
     t0 = time.time()
     sc = build_scenario("LMPC_N50", device=dev)
@@ -1924,7 +2006,7 @@ def finish(card: str, kind: str, kernels: dict, args) -> int:
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
         extra = ("max_abs_err_held", "nan_lanes", "far_from_float64", "ms_8_iters",
-                 "bound_ms_8_iters")
+                 "bound_ms_8_iters", "bound_ms_dense")
         rows = [{**{k: v.get(k) for k in keys}, **{k: v[k] for k in extra if k in v}}
                 for v in kernels.values()]
         require(all(r[k] is not None for r in rows for k in keys if k != "library_ms"),

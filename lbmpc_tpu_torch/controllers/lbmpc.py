@@ -21,6 +21,7 @@ import torch
 from lbmpc_tpu_torch.controllers.condensed import CondensedQP
 from lbmpc_tpu_torch.controllers.sqp import sqp_solve
 from lbmpc_tpu_torch.device import resolve_device
+from lbmpc_tpu_torch.ops.lanes import lane_sum
 from lbmpc_tpu_torch.oracle import (DataWindow, make_xi, nw_estimate,
                                     nw_estimate_and_jac)
 
@@ -213,7 +214,7 @@ def make_lbmpc_solver(
             else:
                 tile = lambda a: a.repeat((k,) + (1,) * (a.ndim - 1))
                 e = residual(z, tile(dx0), DataWindow(*(tile(a) for a in window)))
-            return (e * e).sum(dim=1)
+            return lane_sum(e * e)
 
         h = h0d + dx0 @ Hpd.T
         out = sqp_solve(cost, lambda z: residual(z, dx0, window), Gd, h,

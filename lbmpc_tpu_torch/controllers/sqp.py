@@ -21,6 +21,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from lbmpc_tpu_torch.ops.ipm import solve_qp, solve_qp_mixed
+from lbmpc_tpu_torch.ops.lanes import lane_sum
 
 
 class SQPResult(NamedTuple):
@@ -66,7 +67,7 @@ def sqp_solve(
                                              @ zs[..., None])[..., 0]
 
     def violation(zs, hs):
-        return torch.clamp(gz(zs) - hs, min=0.0).sum(dim=-1)
+        return lane_sum(torch.clamp(gz(zs) - hs, min=0.0))
 
     z = z0
     norms = []

@@ -46,6 +46,7 @@ from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.oracle import DataWindow
 from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
 from lbmpc_tpu_torch.ops.ipm_fused import build_fused_qp_solver
+from lbmpc_tpu_torch.ops.lanes import lane_sum
 from lbmpc_tpu_torch.ops.mono_kernel import MonoPhase
 from lbmpc_tpu_torch.ops.qp_kernel import (MI_MAX, NZ_MAX_WIDE, QPSolverH,
                                            step_rhs)
@@ -194,7 +195,7 @@ class FusedSolver:
 
     def cost(self, z, dx0, windows):
         e = self.gn.residual(z, dx0, windows)
-        return (e * e).sum(dim=1)
+        return lane_sum(e * e)
 
     def __call__(self, dx0, windows: DataWindow, z_ws):
         dev = self.device
@@ -246,8 +247,8 @@ class FusedSolver:
                 d, mu_last = out[0], out[1]
                 warm_state = out[2] if wout else None
             # merit at the current iterate reuses the GN phase's residual
-            v0 = torch.clamp(z @ G.T - h, min=0.0).sum(dim=1)
-            m0 = (e * e).sum(dim=1) + self.rho * v0
+            v0 = lane_sum(torch.clamp(z @ G.T - h, min=0.0))
+            m0 = lane_sum(e * e) + self.rho * v0
             dirderiv = (gb * d).sum(dim=1) - self.rho * v0
             # fixed Armijo ladder; if every alpha is rejected (e.g. a NaN
             # direction: NaN merits compare false) the lane takes NO step
@@ -256,7 +257,7 @@ class FusedSolver:
             for a in sched:
                 za = z + a * d
                 m_a = (self.cost(za, dx0, windows)
-                       + self.rho * torch.clamp(za @ G.T - h, min=0.0).sum(dim=1))
+                       + self.rho * lane_sum(torch.clamp(za @ G.T - h, min=0.0)))
                 ok = ~accepted & (m_a <= m0 + 1e-4 * a * dirderiv)
                 alpha_sel = torch.where(ok, a, alpha_sel)
                 accepted = accepted | ok

@@ -24,17 +24,18 @@
 // bit.
 //
 // What bounds it on an H100: by its roofline, operations — K2w's assembly
-// of G' diag(d) G (mI nz^2 multiply-adds an iteration) and K1w's NW sums;
-// in practice the latency of each lane's serial chain: the N GN stages (two
-// block barriers each), then each Mehrotra iteration's slab-blocked
-// factorization and column sweeps.
+// of G' diag(d) G over G's structural nonzeros and K1w's NW sums; in
+// practice the latency of each lane's serial chain: the N GN stages (two
+// block barriers each), then each Mehrotra iteration's assembly, panel
+// factorization and blocked sweeps (mehrotra_wide.cuh).
 //
 // Design: one 256-thread block per lane (K2w's block). The shared memory is
-// K2w's carve (H, M, the G chunk, the row vectors) followed by K1w's window,
+// K2w's carve (the G ring, H, M, the row vectors) followed by K1w's window,
 // Jacobian rows and reduction slots; the GN body accumulates 2 J'J straight
 // into K2w's H, which gets Hconst added in place, and g goes to K2w's g: no
 // round trip through device memory, no second launch. G stays in device
-// memory (L2-resident, shared by every block). The register tile of K2w's
+// memory (L2-resident, shared by every block), read through K2w's host plan
+// of its structure (ops/qp_kernel.WidePlan). The register tile of K2w's
 // assembly is a template parameter chosen by nz (3, 5, 7, 8), and so is the
 // family. __launch_bounds__ asks for two blocks an SM, as K2w does: 128
 // registers a thread, where the GN body alone would take ~167, so some of it
@@ -45,6 +46,8 @@
 // multiply-add differently here than in those two kernels.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "gn_wide_body.cuh"
 #include "mehrotra_wide.cuh"
@@ -68,16 +71,19 @@ __global__ void __launch_bounds__(kThreads, K3W_MIN_BLOCKS)
 gn_mehrotra_wide_kernel(const float* __restrict__ cst, const float* __restrict__ z,
                         const float* __restrict__ dx0, const float* __restrict__ X,
                         const float* __restrict__ Y, const float* __restrict__ valid,
-                        const float* __restrict__ G, const float* __restrict__ h0,
+                        const float* __restrict__ Gp, const float* __restrict__ GpT,
+                        const int* __restrict__ meta,
+                        const float* __restrict__ h0,
                         const float* __restrict__ Hp, float* __restrict__ e_out,
                         float* __restrict__ d_out, float* __restrict__ mu_out,
                         float* __restrict__ g_out, int N, int q, int mI, int iters,
                         float tau, float d_cap) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int nz = N + 1;
   const int n_run = kCasadi ? N : N - 2;
   const int ne = n_run * (gnw::kN + 1) + 2 * gnw::kN;
   const Shared sh = carve(smem, mI, nz);
+  const Plan P = make_plan(Gp, GpT, meta, mI, nz);
   gnw::Shared gs;
   gs.win = smem + shared_floats(mI, nz);
   gs.H = sh.H;
@@ -89,7 +95,7 @@ gn_mehrotra_wide_kernel(const float* __restrict__ cst, const float* __restrict__
   const float* dxb = dx0 + b * gnw::kN;
 
   gn::stage_window(gs.win, X, Y, valid, b, q, tid, kThreads);
-  if (tid < nz) sh.x[tid] = 0.f;
+  if (tid < kNzMax) sh.x[tid] = sh.dx[tid] = 0.f;
   __syncthreads();
   const float gacc = gnw::lane<kCasadi>(gs, cst, zb, dxb, N, q, e_out + b * ne,
                                         gnw::threads(nz));
@@ -113,11 +119,12 @@ gn_mehrotra_wide_kernel(const float* __restrict__ cst, const float* __restrict__
     if (r < mI) {
       // each product and sum rounded on its own, in index order: the
       // order of ops/qp_kernel.step_rhs, which the two-launch routes use
+      const float* gr = P.Gp + (size_t)r * P.ld;
       float hv = h0[r], gz = 0.f;
 #pragma unroll
       for (int j = 0; j < gnw::kN; ++j)
         hv = __fadd_rn(hv, __fmul_rn(Hp[r * gnw::kN + j], dxb[j]));
-      for (int c = 0; c < nz; ++c) gz = __fadd_rn(gz, __fmul_rn(G[(size_t)r * nz + c], zb[c]));
+      for (int c = 0; c < nz; ++c) gz = __fadd_rn(gz, __fmul_rn(gr[c], zb[c]));
       hr[t] = __fsub_rn(hv, gz);
       s[t] = fmaxf(hr[t], 1.f);
       zr[t] = 1.f;
@@ -125,7 +132,7 @@ gn_mehrotra_wide_kernel(const float* __restrict__ cst, const float* __restrict__
   }
   __syncthreads();
 
-  solve<kT>(sh, G, mI, nz, iters, tau, d_cap, s, zr, hr);
+  solve<kT>(sh, P, mI, nz, iters, tau, d_cap, s, zr, hr);
 
   const float mu = mehrotra::block_mu(mI, s, zr, sh.red);
   if (tid == 0) mu_out[b] = mu;
@@ -134,9 +141,9 @@ gn_mehrotra_wide_kernel(const float* __restrict__ cst, const float* __restrict__
 
 template <bool kCasadi, int kT>
 int launch(const float* cst, const float* z, const float* dx0, const float* X, const float* Y,
-           const float* valid, const float* G, const float* h0, const float* Hp, float* e,
-           float* d, float* mu, float* g, int B, int N, int q, int mI, int iters, float tau,
-           float d_cap, void* stream) {
+           const float* valid, const float* Gp, const float* GpT, const int* meta,
+           const float* h0, const float* Hp, float* e, float* d, float* mu, float* g, int B,
+           int N, int q, int mI, int iters, float tau, float d_cap, void* stream) {
   const size_t smem = (shared_floats(mI, N + 1) + gn_floats(q)) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t st = cudaFuncSetAttribute(gn_mehrotra_wide_kernel<kCasadi, kT>,
@@ -145,46 +152,49 @@ int launch(const float* cst, const float* z, const float* dx0, const float* X, c
     if (st != cudaSuccess) return (int)st;
   }
   gn_mehrotra_wide_kernel<kCasadi, kT><<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      cst, z, dx0, X, Y, valid, G, h0, Hp, e, d, mu, g, N, q, mI, iters, tau, d_cap);
+      cst, z, dx0, X, Y, valid, Gp, GpT, meta, h0, Hp, e, d, mu, g, N, q, mI, iters, tau,
+      d_cap);
   return (int)cudaGetLastError();
 }
 
 template <bool kCasadi>
 int launch_tile(const float* cst, const float* z, const float* dx0, const float* X,
-                const float* Y, const float* valid, const float* G, const float* h0,
-                const float* Hp, float* e, float* d, float* mu, float* g, int B, int N, int q,
-                int mI, int iters, float tau, float d_cap, void* stream) {
+                const float* Y, const float* valid, const float* Gp, const float* GpT,
+                const int* meta, const float* h0, const float* Hp, float* e, float* d,
+                float* mu, float* g, int B, int N, int q, int mI, int iters, float tau,
+                float d_cap, void* stream) {
   const int nz = N + 1;
-  if (nz <= 3 * kTile)
-    return launch<kCasadi, 3>(cst, z, dx0, X, Y, valid, G, h0, Hp, e, d, mu, g, B, N, q, mI,
-                              iters, tau, d_cap, stream);
-  if (nz <= 5 * kTile)
-    return launch<kCasadi, 5>(cst, z, dx0, X, Y, valid, G, h0, Hp, e, d, mu, g, B, N, q, mI,
-                              iters, tau, d_cap, stream);
-  if (nz <= 7 * kTile)
-    return launch<kCasadi, 7>(cst, z, dx0, X, Y, valid, G, h0, Hp, e, d, mu, g, B, N, q, mI,
-                              iters, tau, d_cap, stream);
-  return launch<kCasadi, 8>(cst, z, dx0, X, Y, valid, G, h0, Hp, e, d, mu, g, B, N, q, mI,
-                            iters, tau, d_cap, stream);
+  const auto run = [&](auto tile) {
+    return launch<kCasadi, decltype(tile)::value>(cst, z, dx0, X, Y, valid, Gp, GpT, meta,
+                                                  h0, Hp, e, d, mu, g, B, N, q, mI, iters,
+                                                  tau, d_cap, stream);
+  };
+  if (nz <= 3 * kTile) return run(std::integral_constant<int, 3>());
+  if (nz <= 5 * kTile) return run(std::integral_constant<int, 5>());
+  if (nz <= 7 * kTile) return run(std::integral_constant<int, 7>());
+  return run(std::integral_constant<int, 8>());
 }
 
 }  // namespace
 
 extern "C" int gn_mehrotra_wide_launch(const float* cst, const float* z, const float* dx0,
                                        const float* X, const float* Y, const float* valid,
-                                       const float* G, const float* h0, const float* Hp,
-                                       float* e, float* d, float* mu, float* g, int B, int N,
-                                       int q, int mI, int iters, float tau, float d_cap,
-                                       int casadi, void* stream) {
+                                       const float* Gp, const float* GpT, const int* meta,
+                                       const float* h0, const float* Hp, float* e, float* d,
+                                       float* mu, float* g, int B, int N, int q, int mI,
+                                       int iters, float tau, float d_cap, int casadi,
+                                       void* stream) {
   if (N < (casadi ? 1 : 3) || N + 1 > kNzMax || q < 1 || mI < 1 || mI > kMaxRows || B < 0
       || iters < 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  return casadi ? launch_tile<true>(cst, z, dx0, X, Y, valid, G, h0, Hp, e, d, mu, g, B, N,
-                                    q, mI, iters, tau, d_cap, stream)
-                : launch_tile<false>(cst, z, dx0, X, Y, valid, G, h0, Hp, e, d, mu, g, B, N,
-                                     q, mI, iters, tau, d_cap, stream);
+  return casadi ? launch_tile<true>(cst, z, dx0, X, Y, valid, Gp, GpT, meta, h0, Hp, e, d,
+                                    mu, g, B, N, q, mI, iters, tau, d_cap, stream)
+                : launch_tile<false>(cst, z, dx0, X, Y, valid, Gp, GpT, meta, h0, Hp, e,
+                                     d, mu, g, B, N, q, mI, iters, tau, d_cap, stream);
 }
+
+K2W_CLOCKS_EXPORT(gn_mehrotra_wide)
 
 extern "C" const char* gn_mehrotra_wide_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

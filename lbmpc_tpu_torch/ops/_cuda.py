@@ -66,9 +66,9 @@ class CudaKernel:
         self._err = None
 
     def library_path(self) -> pathlib.Path:
-        # the shared device headers (csrc/*.cuh) are part of every source
+        # the shared device headers (the source's *.cuh) are part of every source
         text = self.source.read_bytes() + b"".join(
-            p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+            p.read_bytes() for p in sorted(self.source.parent.glob("*.cuh")))
         flags = " ".join(NVCC_FLAGS + self.flags)
         digest = hashlib.sha256(text + flags.encode()).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
@@ -131,13 +131,15 @@ class CudaKernel:
 
 
 def build_all(kernels, verbose: bool = False) -> dict:
-    """Build several kernels at once (one nvcc per source, all started
-    together); returns {source name: compiler output}."""
+    """Build several kernels at once (one nvcc per library: a source under
+    one set of flags; all started together); returns {library file name:
+    compiler output}."""
     procs = {}
     for k in kernels:
-        if k.source not in procs:
-            procs[k.source] = (k, k.start_build(verbose))
-    return {k.source.stem: k.finish_build(p) for k, p in procs.values()}
+        lib = k.library_path()
+        if lib not in procs:
+            procs[lib] = (k, k.start_build(verbose))
+    return {lib.name: k.finish_build(p) for lib, (k, p) in procs.items()}
 
 
 def ptr(t: torch.Tensor) -> P:

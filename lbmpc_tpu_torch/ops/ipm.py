@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from lbmpc_tpu_torch.ops.chol import chol_batched, solve_tri_lower, solve_tri_upper_t
+from lbmpc_tpu_torch.ops.lanes import lane_sum
 
 
 class IPMSolution(NamedTuple):
@@ -64,7 +65,7 @@ def _step_length(v: torch.Tensor, dv: torch.Tensor, tau: float) -> torch.Tensor:
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a * b).sum(dim=-1)
+    return lane_sum(a * b)
 
 
 def _amax_abs(a: torch.Tensor) -> torch.Tensor:

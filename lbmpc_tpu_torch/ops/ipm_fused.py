@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from lbmpc_tpu_torch.device import resolve_device
+from lbmpc_tpu_torch.ops.lanes import lane_sum
 from lbmpc_tpu_torch.ops.chol_kernel import (blocked_switch, chol_factor_solve,
                                              chol_factor_solve_blocked, chol_resolve,
                                              chol_solve, chol_solve_blocked,
@@ -184,7 +185,7 @@ class FusedQPSolver:
         y = torch.clamp(y - (y @ G) @ self.GtGinv_Gt, min=0.0)
         ynorm = y.abs().amax(dim=1, keepdim=True)
         y = y / torch.clamp(ynorm, min=1e-25)
-        gap = -(h * y).sum(dim=1)
+        gap = -lane_sum(h * y)
         cert = ((zmax[:, 0] > 1e4) & (ynorm[:, 0] > 0.1)
                 & (gap > 1e-3 * h_scale)
                 & ((y @ G).abs().amax(dim=1) < 1e-3 * self.G_max))
@@ -223,7 +224,7 @@ class FusedQPSolver:
             else:
                 sc = torch.ones(Bsz, nz, dtype=_F32, device=g.device)
                 Mk = M
-            mu = (s * z).sum(dim=1) / mI
+            mu = lane_sum(s * z) / mI
 
             def rhs_of(rc):
                 return -(rd + (d * rp - rc / s_safe) @ G)
@@ -244,7 +245,7 @@ class FusedQPSolver:
             ds_a, dz_a = expand(u_a * sc, rc_aff)
             ap = steplen(s, ds_a, 1.0)
             ad = steplen(z, dz_a, 1.0)
-            mu_aff = ((s + ap * ds_a) * (z + ad * dz_a)).sum(dim=1) / mI
+            mu_aff = lane_sum((s + ap * ds_a) * (z + ad * dz_a)) / mI
             sr = mu_aff / torch.clamp(mu, min=1e-25)
             sigma = sr * sr * sr
             rc = s * z + ds_a * dz_a - (sigma * mu)[:, None]
@@ -262,7 +263,7 @@ class FusedQPSolver:
             torch.nan_to_num(z, nan=0.0, posinf=1e30), h, h_scale)
         farkas_gap = torch.where(cert_f & ~infeasible, gap_f, gap_lat)
         infeasible = infeasible | cert_f
-        mu = (s * z).sum(dim=1) / mI
+        mu = lane_sum(s * z) / mI
         rp = x @ Gt + s - h
         conv = ((mu < 2e-4 * (1.0 + mu * mI))
                 & (rp.abs().amax(dim=1) < 2e-3 * h_scale))

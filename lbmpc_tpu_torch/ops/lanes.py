@@ -1,0 +1,34 @@
+"""Reductions that give identical lanes identical results on the card.
+
+CUDA's reduction kernel reads a long row (PyTorch reads rows longer than
+128 entries in aligned vectors) from its first 16-byte (float32) or 32-byte
+(float64) boundary on, and adds the entries before that boundary on their
+own. Rows whose start addresses differ in alignment therefore sum in
+different orders: in a (B, 514) float32 tensor every other row starts 8
+bytes past a boundary, so two identical lanes come out a rounding apart
+(tools/lane_determinism.py found this in ops/ipm's mu on the card; the CPU
+sums rows alike). lane_sum starts every row on a boundary; ops/ipm,
+ops/ipm_fused and the SQP merits sum their rows of mI entries with it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F_
+
+ALIGN = 8           # entries: 32 bytes of float32, 64 of float64
+VECTOR_ROWS = 128   # longer rows are read in vectors (aten Reduce.cuh)
+
+
+def lane_sum(v: torch.Tensor) -> torch.Tensor:
+    """v.sum(dim=-1), each row added in the same order wherever it lies in
+    the batch: a row longer than VECTOR_ROWS entries is summed from a fresh
+    copy whose rows start ALIGN entries apart (padded with zeros that the
+    sum does not reach), so every row sums as a row starting on a boundary
+    does — as the batch's first row of a fresh tensor always did. Shorter
+    rows, which the kernel reads entry by entry, sum as v.sum(dim=-1)
+    does."""
+    n = v.shape[-1]
+    if n > VECTOR_ROWS and (n % ALIGN or not v.is_contiguous()):
+        v = F_.pad(v, (0, -n % ALIGN))[..., :n]
+    return v.sum(dim=-1)

@@ -26,10 +26,11 @@ import torch
 from lbmpc_tpu_torch.oracle import DataWindow
 from lbmpc_tpu_torch.ops._cuda import WIDE_FLAGS, F, I, P, CudaKernel, check, ptr
 from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
-from lbmpc_tpu_torch.ops.qp_kernel import MI_MAX, mehrotra_h_plain, step_rhs
+from lbmpc_tpu_torch.ops.qp_kernel import (MI_MAX, WidePlan, check_plan, mehrotra_h_plain,
+                                           step_rhs)
 
 KERNEL = CudaKernel("gn_mehrotra", [P] * 13 + [I, I, I, I, I, F, F, P])
-KERNEL_WIDE = CudaKernel("gn_mehrotra_wide", [P] * 13 + [I, I, I, I, I, F, F, I, P],
+KERNEL_WIDE = CudaKernel("gn_mehrotra_wide", [P] * 15 + [I, I, I, I, I, F, F, I, P],
                          flags=WIDE_FLAGS)
 
 
@@ -51,6 +52,14 @@ class MonoPhase:
         self.narrow = gn.narrow and rows_ok
         self.wide = gn.wide and rows_ok
         self.kernel_ok = self.narrow or self.wide
+        self._plan = None
+
+    @property
+    def plan(self) -> WidePlan:
+        """K3w's host plan of G (K2w's), computed once at the first use."""
+        if self._plan is None:
+            self._plan = WidePlan(self.G)
+        return self._plan
 
     def plain(self, z, dx0, window: DataWindow):
         """The plain PyTorch version: same function, any device."""
@@ -92,12 +101,15 @@ class MonoPhase:
         d = torch.empty(Bsz, gn.nz, **f32)
         mu = torch.empty(Bsz, **f32)
         g = torch.empty(Bsz, gn.nz, **f32)
-        args = (ptr(gn.cst), ptr(z), ptr(dx0), ptr(window.X), ptr(window.Y),
-                ptr(window.valid), ptr(self.G), ptr(self.h0), ptr(self.Hp), ptr(e),
-                ptr(d), ptr(mu), ptr(g), I(Bsz), I(gn.N), I(q), I(mI), I(self.iters),
-                F(self.tau), F(self.d_cap))
+        rest = (ptr(self.h0), ptr(self.Hp), ptr(e), ptr(d), ptr(mu), ptr(g), I(Bsz),
+                I(gn.N), I(q), I(mI), I(self.iters), F(self.tau), F(self.d_cap))
+        win = (ptr(gn.cst), ptr(z), ptr(dx0), ptr(window.X), ptr(window.Y),
+               ptr(window.valid))
         if self.narrow:
-            KERNEL.launch(dev, *args)
+            KERNEL.launch(dev, *win, ptr(self.G), *rest)
         else:
-            KERNEL_WIDE.launch(dev, *args, I(int(gn.family == "casadi")))
+            plan = self.plan
+            check_plan(plan, mI, gn.nz, dev)
+            KERNEL_WIDE.launch(dev, *win, ptr(plan.Gp), ptr(plan.GpT), ptr(plan.meta), *rest,
+                               I(int(gn.family == "casadi")))
         return e, d, mu, g

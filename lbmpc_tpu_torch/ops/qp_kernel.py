@@ -26,7 +26,7 @@ from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.ops._cuda import WIDE_FLAGS, F, I, P, CudaKernel, check, ptr
 
 KERNEL = CudaKernel("mehrotra_h", [P] * 10 + [I, I, I, I, F, F, F, P])
-KERNEL_WIDE = CudaKernel("mehrotra_h_wide", [P] * 10 + [I, I, I, I, F, F, F, P],
+KERNEL_WIDE = CudaKernel("mehrotra_h_wide", [P] * 12 + [I, I, I, I, F, F, F, P],
                          flags=WIDE_FLAGS)
 KERNEL_SHARED = CudaKernel("mehrotra", [P] * 7 + [I, I, I, I, F, F, P])
 
@@ -41,8 +41,8 @@ def analyze_constraint_rows(G: np.ndarray) -> dict:
     """Host-side constraint-row analysis (the reference's, kept for the
     shapes it reports): the dominant 2-column-support group ("split-G", mS
     rows; >= 64 rows sharing one {ca, cb} support) and the remaining dense
-    rows sorted by their last nonzero column. The CUDA kernel does not need
-    either restatement; the bench shape has mS = 0."""
+    rows sorted by their last nonzero column. The bench shape and the wide
+    shapes have mS = 0."""
     Gn = np.asarray(G, np.float32)
     mI, nz = Gn.shape
     supports = [np.nonzero(Gn[i])[0] for i in range(mI)]
@@ -63,6 +63,78 @@ def analyze_constraint_rows(G: np.ndarray) -> dict:
     d_rows = sorted(d_rows, key=lambda i: maxc[i])
     return dict(ca=ca, cb=cb, sp_rows=sp_rows, d_rows=d_rows, mD=len(d_rows),
                 mS=len(sp_rows))
+
+
+class WidePlan:
+    """K2w's and K3w's host plan for one G (mI, nz), computed once: the
+    extents by which the kernels skip G's structural zeros (the reference's
+    r5 causal-suffix analysis, pallas_ipm.py:84-92, kept in G's row order):
+    - row_lo[r], row_hi[r]: the first and one past the last nonzero column
+      of row r (the reference's convention: an all-zero row reaches column
+      0); G x and G dx run over them;
+    - col_start[c]: the first row from which on lies every row that reaches
+      column c (the reference's lo, in G's order); G'v sums column c from
+      there;
+    - chunk_tiles[k]: for the k-th chunk of `chunk` rows (chunk_rows(nz)),
+      how many 16-column tiles its rows reach; the assembly adds the chunk
+      into the lower tiles (a, b), b <= a < chunk_tiles[k], and skips every
+      other tile, which holds no nonzero of the chunk.
+    `meta` packs row_lo, row_hi, col_start and chunk_tiles into one int32
+    tensor on G's device, in that order (csrc/mehrotra_wide.cuh Plan); `Gp`
+    is G zero-padded to a multiple of `chunk` rows and of TILE columns (the
+    kernels copy whole 16-byte pieces of it), `GpT` is G transposed. The
+    reference also sorts the rows by their last column; the kernels do not
+    (it saves no tile at the DMS shape, 6 % of them at N40, and would
+    reorder every sum over the rows)."""
+
+    TILE = 16    # csrc/mehrotra_wide.cuh kTile
+
+    @staticmethod
+    def chunk_rows(nz: int) -> int:
+        """Rows a staged chunk (csrc/mehrotra_wide.cuh chunk_rows)."""
+        return 32 if nz <= 64 else 16
+
+    def __init__(self, G):
+        Gt = torch.as_tensor(G, dtype=torch.float32) if not isinstance(G, torch.Tensor) else G
+        dev = Gt.device
+        Gn = Gt.detach().to("cpu", torch.float32).numpy()
+        mI, nz = Gn.shape
+        nonzero = Gn != 0
+        reach = nonzero.any(axis=1)
+        row_hi = np.where(reach, nz - np.argmax(nonzero[:, ::-1], axis=1), 1)
+        row_lo = np.where(reach, np.argmax(nonzero, axis=1), 0)
+        # rows before col_start[c] all end at or before column c
+        col_start = np.searchsorted(np.maximum.accumulate(row_hi), np.arange(nz),
+                                    side="right")
+        self.chunk = chunk = self.chunk_rows(nz)
+        n_chunks = -(-mI // chunk)
+        hi_pad = np.zeros(n_chunks * chunk, np.int64)
+        hi_pad[:mI] = row_hi
+        chunk_tiles = -(-hi_pad.reshape(n_chunks, chunk).max(axis=1) // self.TILE)
+        self.mI, self.nz = mI, nz
+        self.row_lo, self.row_hi = row_lo, row_hi
+        self.col_start, self.chunk_tiles = col_start, chunk_tiles
+        self.meta = torch.as_tensor(
+            np.concatenate([row_lo, row_hi, col_start, chunk_tiles]).astype(np.int32),
+            device=dev)
+        Gp = torch.zeros(n_chunks * chunk, -(-nz // self.TILE) * self.TILE,
+                         dtype=torch.float32, device=dev)
+        Gp[:mI, :nz] = Gt.to(torch.float32)
+        self.Gp = Gp
+        self.GpT = Gp[:mI, :nz].T.contiguous()
+
+    def assemble_plain(self, d):
+        """The kernels' assembly replayed in plain torch: the lower triangle
+        of G' diag(d) G (d (B, mI)) summed chunk by chunk over the tiles the
+        plan keeps; (B, nz, nz), the upper triangle mirrored."""
+        G = self.Gp[:self.mI, :self.nz].to(d.device, d.dtype)
+        M = torch.zeros(d.shape[0], self.nz, self.nz, dtype=d.dtype, device=d.device)
+        for k, tiles in enumerate(self.chunk_tiles.tolist()):
+            r = slice(k * self.chunk, min((k + 1) * self.chunk, self.mI))
+            w = min(int(tiles) * self.TILE, self.nz)
+            Gc = G[r, :w]
+            M[:, :w, :w] += Gc.T @ (d[:, r, None] * Gc)
+        return torch.tril(M) + torch.tril(M, -1).transpose(1, 2)
 
 
 def step_rhs(h0, Hp, G, dx0, z):
@@ -166,10 +238,11 @@ def _check_sizes(name: str, nz: int, mI: int, nz_max: int = NZ_MAX) -> None:
 
 
 def mehrotra_h(G, H, g, h, iters: int, tau: float = 0.995, d_cap: float = 1e6,
-               warm=None, warm_eps: float = 1e-5, want_state: bool = False):
+               warm=None, warm_eps: float = 1e-5, want_state: bool = False,
+               plan: WidePlan | None = None):
     """Route one batched solve: CUDA tensors launch K2 (nz <= 32) or K2w
-    (32 < nz <= 128), CPU tensors take mehrotra_h_plain. Returns
-    (x, mu, (s, z) or None)."""
+    (32 < nz <= 128, on `plan`, G's WidePlan, computed here when not given),
+    CPU tensors take mehrotra_h_plain. Returns (x, mu, (s, z) or None)."""
     if g.device.type == "cpu":
         x, mu, state = mehrotra_h_plain(G, H, g, h, iters, tau, d_cap, warm,
                                         warm_eps)
@@ -193,8 +266,14 @@ def mehrotra_h(G, H, g, h, iters: int, tau: float = 0.995, d_cap: float = 1e6,
               torch.empty(Bsz, mI, dtype=torch.float32, device=dev))
              if want_state else None)
     null = P(None)
-    kernel = KERNEL if nz <= NZ_MAX else KERNEL_WIDE
-    kernel.launch(dev, ptr(G), ptr(H), ptr(g), ptr(h),
+    if nz <= NZ_MAX:
+        kernel, g_args = KERNEL, (ptr(G),)
+    else:
+        if plan is None:
+            plan = WidePlan(G)
+        check_plan(plan, mI, nz, dev)
+        kernel, g_args = KERNEL_WIDE, (ptr(plan.Gp), ptr(plan.GpT), ptr(plan.meta))
+    kernel.launch(dev, *g_args, ptr(H), ptr(g), ptr(h),
                   ptr(warm[0]) if warm is not None else null,
                   ptr(warm[1]) if warm is not None else null,
                   ptr(x), ptr(mu),
@@ -203,6 +282,15 @@ def mehrotra_h(G, H, g, h, iters: int, tau: float = 0.995, d_cap: float = 1e6,
                   I(Bsz), I(mI), I(nz), I(iters), F(tau), F(d_cap),
                   F(warm_eps))
     return x, mu, state
+
+
+def check_plan(plan: WidePlan, mI: int, nz: int, device) -> None:
+    """Raise unless `plan` is a WidePlan of an (mI, nz) G on `device`."""
+    if (plan.mI, plan.nz) != (mI, nz):
+        raise ValueError(f"the plan is for G {(plan.mI, plan.nz)}, not {(mI, nz)}")
+    check("plan.Gp", plan.Gp, tuple(plan.Gp.shape), device)
+    check("plan.GpT", plan.GpT, (nz, mI), device)
+    check("plan.meta", plan.meta, tuple(plan.meta.shape), device, torch.int32)
 
 
 class QPSolverH:
@@ -223,6 +311,14 @@ class QPSolverH:
         self.warm_in, self.warm_out = bool(warm_in), bool(warm_out)
         self.warm_eps = float(warm_eps)
         self.plain = plain
+        self._plan = None
+
+    @property
+    def plan(self) -> WidePlan:
+        """K2w's host plan of G, computed once at the first use."""
+        if self._plan is None:
+            self._plan = WidePlan(self.G)
+        return self._plan
 
     def __call__(self, H_b, g, h, warm=None):
         return self.raw_packed(H_b.to(torch.float32).contiguous(), g, h, warm)
@@ -239,9 +335,11 @@ class QPSolverH:
                                             self.tau, self.d_cap, warm,
                                             self.warm_eps)
         else:
+            wide = g.device.type == "cuda" and self.G.shape[1] > NZ_MAX
             x, mu, state = mehrotra_h(self.G, H, g, h, self.iters, self.tau,
                                       self.d_cap, warm, self.warm_eps,
-                                      want_state=self.warm_out)
+                                      want_state=self.warm_out,
+                                      plan=self.plan if wide else None)
         return (x, mu, state) if self.warm_out else (x, mu)
 
     @staticmethod

@@ -8,8 +8,8 @@ solver (controllers/lmpc on ops/ipm, or controllers/lbmpc.make_lbmpc_solver)
 and the single-scenario episodes on the `condensed` backend (ref:
 examples/LBMPC_RunExample.m:10-107, DMS_LBMPC_casadi.m:13-160).
 `build_fleet_episode` runs a fmincon-family cohort through the batch-level
-SQP. The NMPC presets (ROADMAP §1 item 9) and the stage-wise `sparse*`
-backends (item 10) are not ported and raise.
+SQP. The NMPC presets (ROADMAP §1 item 3) and the stage-wise `sparse*`
+backends (item 4) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -125,7 +125,7 @@ def _episode_parts(sc: Scenario) -> dict:
     backend = cfg.solver.qp_backend
     if backend != "condensed":
         raise ValueError(f"qp_backend={backend!r}: the stage-wise Riccati backends "
-                         "are not ported yet (ROADMAP §1 item 10); use 'condensed'")
+                         "are not ported yet (ROADMAP §1 item 4); use 'condensed'")
     dev = resolve_device(sc.device)
     mixed = cfg.solver.dtype == "mixed"
     dtype = torch.float32 if cfg.solver.dtype == "float32" else torch.float64
@@ -173,7 +173,7 @@ def build_scenario(name_or_cfg, ipm_iters: int | None = None, device=None) -> Sc
     if cfg.controller not in ("lbmpc", "lmpc"):
         raise ValueError("the port's scenarios cover LBMPC and LMPC presets; "
                          f"controller={cfg.controller!r} is not ported yet "
-                         "(ROADMAP §1 item 9)")
+                         "(ROADMAP §1 item 3)")
     p = cfg.plant
     mg2 = p.model == "mg2"
     A, B, C, _ = (mg2_dlti if mg2 else mgcm_dlti)(p.ts)

@@ -163,9 +163,9 @@ def test_fleet_rejects_what_is_not_ported():
         t_scenario.build_fleet_episode(cfg, warm_chain=True, qp_warm=True, device="cpu")
     with pytest.raises(ValueError, match="fmincon"):
         t_scenario.build_fleet_episode(lt.make_preset("DMS_LBMPC_q100"), device="cpu")
-    with pytest.raises(ValueError, match="item 9"):
+    with pytest.raises(ValueError, match="§1 item 3"):
         t_scenario.build_scenario(lt.make_preset("NMPC_N20"))
     sparse = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
                                                                  qp_backend="sparse"))
-    with pytest.raises(ValueError, match="item 10"):
+    with pytest.raises(ValueError, match="§1 item 4"):
         t_scenario.build_scenario(sparse, device="cpu").run()

@@ -2,8 +2,8 @@
 K2w (mehrotra_h_wide), K3 (gn_mehrotra), K3w (gn_mehrotra_wide), K4
 (mehrotra), K5a/b/c (chol) and K6a/b (chol_blocked) against their plain
 versions on the same CUDA tensors (K3 and K3w also against the two-launch
-composition, bit for bit), and the routes of the fused solve against their
-plain routes. Marked `gpu`; without CUDA every test skips. On a machine with
+composition, bit for bit), the routes of the fused solve against their
+plain routes, and identical lanes of a fleet staying identical. Marked `gpu`; without CUDA every test skips. On a machine with
 an NVIDIA GPU and nvcc (no JAX needed):
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -20,6 +20,7 @@ from lbmpc_tpu_torch.controllers.sqp_fused import make_lbmpc_solver_fused
 from lbmpc_tpu_torch.oracle import DataWindow
 from lbmpc_tpu_torch.ops import chol_kernel, gn_kernel, mono_kernel, qp_kernel
 from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
+from lbmpc_tpu_torch.ops.lanes import lane_sum
 from lbmpc_tpu_torch.ops.mono_kernel import MonoPhase
 from lbmpc_tpu_torch.ops.qp_kernel import (QPSolver, QPSolverH, mehrotra_h,
                                            mehrotra_h_plain, mehrotra_plain, step_rhs)
@@ -336,26 +337,42 @@ def _as_close(ref, a, b, slack: int = 1):
     times b's (+1e-8), and at most `slack` more lanes beyond 5e-2 of it."""
     ea, eb = ((x.double() - ref.double()).abs() for x in (a, b))
     far = lambda e: int((~(e.amax(dim=1) <= 5e-2)).sum())
-    assert ea.median().item() <= 1.5 * eb.median().item() + 1e-8
-    assert far(ea) <= far(eb) + slack
+    assert ea.median().item() <= 1.5 * eb.median().item() + 1e-8, (
+        ea.median().item(), eb.median().item())
+    assert far(ea) <= far(eb) + slack, (far(ea), far(eb))
 
 
-@pytest.mark.parametrize("family", ["casadi", "fmincon"])
-def test_qp_wide_kernel_matches_plain(cuda, wide, family):
-    """K2w on the QP built from K1w's H and g, cold at 8 iterations and warm
-    for 2 from K2w's state: one K2w launch a solve and no K2; cold_state
-    reproduces the cold start bit for bit. The N40 cold solve holds the K2
-    class. Where that class cannot hold — the DMS QP, whose float32 plain
-    version is itself ~1e-6 from the float64 solve in the median, and the
-    2-iteration warm solves, which start where d = z/s reaches the 1e6 cap —
-    K2w is held to the plain version in float64 (chip_smoke.f64_gates)."""
-    sc, kw = wide[family]
+def _wide_qp(cuda, family: str, nz: int, B: int, seed: int):
+    """A QP above nz 32 from K1w's H and g on seeded inputs: LBMPC_N40 /
+    the DMS preset at N = nz - 1 (nz = 41 and 101 are the presets as they
+    ship), G cut to its first 1024 rows where the stack is longer (the
+    kernels' limit). Returns (G, H, g, h)."""
+    name = "LBMPC_N40" if family == "fmincon" else "DMS_LBMPC_q100"
+    cfg = lt.make_preset(name)
+    cfg = dataclasses.replace(cfg, ocp=dataclasses.replace(cfg.ocp, N=nz - 1))
+    sc = build_scenario(cfg)
+    kw = dict(family=family, delta=cfg.plant.ts, bandwidth=cfg.oracle.bandwidth,
+              ridge=cfg.oracle.ridge, dx_ref=np.asarray(cfg.dx_ref))
     gn = GNPhase(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, device=cuda, **kw)
-    z, dx, win = _inputs(96, sc.nz, cuda, seed=12)
+    z, dx, win = _inputs(B, nz, cuda, seed=seed)
     _, H, g = gn(z, dx, win)
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32)[:1024], device=cuda)
     G = t(sc.qp.G)
-    h = step_rhs(t(sc.qp.h0), t(sc.qp.Hp), G, dx, z)
+    return G, H, g, step_rhs(t(sc.qp.h0), t(sc.qp.Hp), G, dx, z)
+
+
+@pytest.mark.parametrize("family, nz", [("fmincon", 33), ("fmincon", 41), ("fmincon", 64),
+                                        ("casadi", 41), ("casadi", 101), ("casadi", 128)])
+def test_qp_wide_kernel_matches_plain(cuda, family, nz):
+    """K2w on the QP built from K1w's H and g, cold at 8 iterations and warm
+    for 2 from K2w's state, at nz 33 to 128: one K2w launch a solve and no
+    K2; cold_state reproduces the cold start bit for bit. The fmincon cold
+    solves hold the K2 class. Where that class cannot hold — the casadi QPs,
+    whose float32 plain version is itself ~1e-6 from the float64 solve in
+    the median, and the 2-iteration warm solves, which start where d = z/s
+    reaches the 1e6 cap — K2w is held to the plain version in float64
+    (chip_smoke.f64_gates)."""
+    G, H, g, h = _wide_qp(cuda, family, nz, 96, seed=12)
     f64 = lambda it, warm=None: mehrotra_h_plain(
         G.double(), H.double(), g.double(), h.double(), it,
         warm=None if warm is None else tuple(a.double() for a in warm))[0]
@@ -363,6 +380,7 @@ def test_qp_wide_kernel_matches_plain(cuda, wide, family):
     x, mu, st = mehrotra_h(G, H, g, h, 8, want_state=True)
     assert (qp_kernel.KERNEL.launches - n0[0], qp_kernel.KERNEL_WIDE.launches - n0[1]) == (0, 1)
     xp, mup, _ = mehrotra_h_plain(G, H, g, h, 8)
+    assert bool(x.isfinite().all()) and bool(mu.isfinite().all())
     if family == "fmincon":
         d = (x - xp).abs()
         assert d.median().item() < 1e-6 and d.max().item() < 5e-2
@@ -374,6 +392,45 @@ def test_qp_wide_kernel_matches_plain(cuda, wide, family):
     _as_close(f64(2, st), xw, xwp)
     xc, muc, stc = mehrotra_h(G, H, g, h, 8, warm=QPSolverH.cold_state(h), want_state=True)
     assert torch.equal(xc, x) and torch.equal(muc, mu) and torch.equal(stc[1], st[1])
+
+
+@pytest.mark.parametrize("family, nz", [("fmincon", 41), ("casadi", 101)])
+def test_qp_wide_kernel_keeps_a_nan_lane(cuda, family, nz):
+    """A lane whose g or h holds a NaN ends with NaN in x and mu, though
+    the plan skips G's structural zeros; the other lanes are bit for bit
+    what they are without it (lanes are independent)."""
+    G, H, g, h = _wide_qp(cuda, family, nz, 16, seed=14)
+    x0, mu0, _ = mehrotra_h(G, H, g, h, 8)
+    g1, h1 = g.clone(), h.clone()
+    g1[3, 0] = float("nan")
+    h1[7, G.shape[0] // 2] = float("nan")
+    x1, mu1, _ = mehrotra_h(G, H, g1, h1, 8)
+    for lane in (3, 7):
+        assert bool(torch.isnan(mu1[lane])) and bool(torch.isnan(x1[lane]).any())
+    keep = [i for i in range(16) if i not in (3, 7)]
+    assert torch.equal(x1[keep], x0[keep]) and torch.equal(mu1[keep], mu0[keep])
+
+
+@pytest.mark.parametrize("route", ["pallas_mono", "xla"])
+def test_identical_lanes_stay_identical(cuda, route):
+    """Identical lanes give identical results: 8 copies of dx_init through
+    the float32 hybrid at LBMPC_N50 (on pallas_mono: chip_smoke.py phase
+    29's fleet, every flagged lane repaired on the vmapped backend; and on
+    the default xla route), 40 steps. The port's ops/ipm (and ops/ipm_fused)
+    summed mu over mI = 514 entries with a CUDA reduction whose order
+    depends on each row's address (ops/lanes.lane_sum), which parted the
+    lanes from step 0 and their trajectories from step 31."""
+    from lbmpc_tpu_torch.runtime.scenario import build_fleet_episode
+
+    cfg = lt.make_preset("LBMPC_N50", iterations=40)
+    _, run = build_fleet_episode(cfg, backend="hybrid", qp_kernel=route,
+                                 ipm_iters=(16, 8), sqp_iters=2, repair_frac=1.0, device=cuda)
+    res = run(np.broadcast_to(np.asarray(cfg.dx_init), (8, 4)).copy())
+    for a in (res.sys_history, res.art_history, res.solver_converged, res.final_z):
+        assert torch.equal(a, a[:1].expand_as(a))
+    v = torch.randn(1, 514, device=cuda).expand(8, 514).contiguous()
+    s = lane_sum(v)
+    assert torch.equal(s, s[:1].expand_as(s))
 
 
 def test_fused_solve_wide_routes(cuda, wide):

@@ -230,3 +230,24 @@ def test_lmpc_solver_mixed_matches_reference(lmpc):
     np.testing.assert_array_equal(sol_t.converged.numpy()[clean],
                                   np.asarray(sol_r.converged)[clean])
     assert bool(sol_t.converged.numpy()[clean].all())
+
+
+def test_lane_sum_sums_every_row_alike():
+    """ops/lanes.lane_sum: rows of at most 128 entries sum as v.sum(-1) does,
+    bit for bit; longer rows are summed from a padded copy (the padding not
+    summed) and agree with v.sum(-1) to float32 roundoff; identical rows,
+    strided views included, give identical sums."""
+    from lbmpc_tpu_torch.ops.lanes import lane_sum
+
+    rng = np.random.default_rng(8)
+    for n in (51, 128, 129, 414, 514, 1024):
+        v = torch.tensor(rng.standard_normal((6, n)), dtype=torch.float32)
+        s = lane_sum(v)
+        if n <= 128:
+            assert torch.equal(s, v.sum(dim=-1))
+        else:
+            assert torch.allclose(s, v.sum(dim=-1), rtol=0, atol=n * 1e-6)
+        same = v[:1].expand(5, n)
+        assert torch.equal(lane_sum(same), lane_sum(same)[:1].expand(5))
+        wide = torch.tensor(rng.standard_normal((4, n + 3)), dtype=torch.float32)[:, 1:n + 1]
+        assert torch.equal(lane_sum(wide), lane_sum(wide.contiguous()))
