@@ -33,10 +33,13 @@ counts set to 0 just before it and read just after:
   MATLAB runs (tests/golden): the float32 pallas_mono hybrid and the float64
   per-problem episodes at N=50.
 It times the kernels, their plain versions, the library yardsticks, the
-solves and the fleet steps with CUDA events, prints K2w's and K3w's time
-split by phase of a Mehrotra iteration (phases 23 and 24, from the
-phase-clock builds of tools/k2w_split.py), and holds the golden episode's
-8 identical lanes identical for all its steps (phase 29).
+solves and the fleet steps with CUDA events (K2 and K3 at batch 2048, the
+cohort and the repair's K, with their registers, spills and lanes an SM),
+prints K2's, K3's, K2w's and K3w's time split by phase of a Mehrotra
+iteration (phases 6, 16, 23 and 24, from the phase-clock builds of
+tools/k2_split.py and tools/k2w_split.py), holds K2's lanes to the same bits
+wherever a QP sits in the batch (phase 3), and holds the golden episode's 8
+identical lanes identical for all its steps (phase 29).
 
     python3 chip_smoke.py                 # every phase (needs one card)
     python3 chip_smoke.py --stop-after 3  # build + K1/K2 checks only
@@ -281,16 +284,19 @@ def run_phases(dev, card: str, kind: str, args) -> int:
                    qp_kernel.KERNEL_SHARED, *chol_kernel.KERNELS, gn_kernel.KERNEL_WIDE,
                    qp_kernel.KERNEL_WIDE, *chol_kernel.BLOCKED_KERNELS,
                    mono_kernel.KERNEL_WIDE)
-    # K2w's and K3w's phase-clock builds (tools/k2w_split.py), for the split
-    # that phases 23 and 24 print: built beside the package's, never launched
-    # on its paths
-    logs = _cuda.build_all(all_kernels + tuple(split_tool().clocked_kernels().values()),
+    # K2's, K3's, K2w's and K3w's phase-clock builds (tools/k2_split.py,
+    # tools/k2w_split.py), for the split that phases 6, 16, 23 and 24 print:
+    # built beside the package's, never launched on its paths
+    logs = _cuda.build_all(all_kernels + tuple(split_tool().clocked_kernels().values())
+                           + tuple(narrow_split_tool().kernels(clocked=True).values()),
                            verbose=True)
     for name, text in logs.items():
         for line in text.splitlines():
             if any(k in line for k in ("registers", "spill", "smem", "error",
                                        "Function properties")):
                 log(f"  {name}: {line.strip()}")
+    ptxas = {k.name: narrow_split_tool().ptxas_summary(logs.get(k.library_path().name, ""))
+             for k in (qp_kernel.KERNEL, mono_kernel.KERNEL)}
     log(f"  built {len(logs)} kernel sources in parallel in {time.time() - t0:.1f} s")
     require(all(k.library_path().exists() for k in all_kernels), "kernels built")
     if args.stop_after < 2:
@@ -362,6 +368,22 @@ def run_phases(dev, card: str, kind: str, args) -> int:
         require(bool(torch.equal(xc, xk) and torch.equal(muc, muk)),
                 f"K2 cold_state warm-in equals the cold solve bit for bit (B={B})")
     kernels["mehrotra_h"]["max_abs_err"] = k2_err
+    # a lane's bits do not depend on where its QP sits in the batch: lane 0's
+    # QP copied to lanes 1, 31, 32 and B - 1, and solved alone (B = 1)
+    for B in (BATCH, REPAIR_K):
+        H_b, g_b, h_b = H_k[:B].clone(), g_k[:B].clone(), hq[:B].clone()
+        at = sorted({0, 1, 31, 32, B - 1} & set(range(B)))
+        for a in (H_b, g_b, h_b):
+            a[at] = a[0].clone()
+        xk, muk, stk = mehrotra_h(G, H_b, g_b, h_b, IPM_SCHED[0], want_state=True)
+        xw, muw, stw = mehrotra_h(G, H_b, g_b, h_b, IPM_SCHED[1], warm=stk, want_state=True)
+        x1, mu1, st1 = mehrotra_h(G, H_b[:1].contiguous(), g_b[:1].contiguous(),
+                                  h_b[:1].contiguous(), IPM_SCHED[0], want_state=True)
+        outs = (xk, muk, *stk, xw, muw, *stw)
+        same = all(torch.equal(o[at], o[:1].expand_as(o[at])) for o in outs)
+        alone = all(torch.equal(a[:1], b) for a, b in zip((xk, muk, *stk), (x1, mu1, *st1)))
+        require(same and alone, f"K2 one QP at lanes {at} of B={B} and alone (B=1): the same "
+                f"bits ({IPM_SCHED[0]} cold, {IPM_SCHED[1]} warm)")
     if args.stop_after < 4:
         return finish(card, kind, kernels, args)
 
@@ -494,6 +516,7 @@ def run_phases(dev, card: str, kind: str, args) -> int:
     log(f"  bound K1 {b1:.4f} ms ({b1_by}; {by} B, {fl:.4g} flop); K2 8 iters "
         f"{b2:.4f} ms ({b2_by}; {by2} B, {fl2:.4g} flop); K2 2 iters "
         f"{bound_ms(by22, fl22)[0]:.4f} ms {tag}")
+    narrow_k2_report(dev, tag, kernels, ptxas["mehrotra_h"], gn, G, h0, Hp)
     if args.profile:
         profile_fleet(dataclasses.replace(fcfg, iterations=3), fleet_kw, dx_init, tag)
     log(f"  wall time so far {time.time() - t_start:.1f} s")
@@ -502,7 +525,8 @@ def run_phases(dev, card: str, kind: str, args) -> int:
     xla_phases(dev, tag, args, kernels, cfg, sc, dx, win, dx_init)
     log(f"  wall time so far {time.time() - t_start:.1f} s")
     if args.stop_after >= 12:
-        kernel_route_phases(dev, tag, args, kernels, cfg, sc, gn, dx, win, dx_init)
+        kernel_route_phases(dev, tag, args, kernels, cfg, sc, gn, dx, win, dx_init,
+                            ptxas["gn_mehrotra"])
         log(f"  wall time so far {time.time() - t_start:.1f} s")
     if args.stop_after >= 17:
         wide_phases(dev, tag, args, kernels, dx_init)
@@ -981,7 +1005,7 @@ def anchored_route_gates(name: str, zk, ck, zp, cp, za) -> float:
 
 
 def kernel_route_phases(dev, tag: str, args, kernels: dict, cfg, sc, gn, dx, win,
-                        dx_init) -> None:
+                        dx_init, k3_ptxas: str = "") -> None:
     """Phases 12-16: the pallas_mono route (K3), the pallas route (the plain
     GN phase + K2) and the shared-H QP (K4)."""
     import torch
@@ -1189,6 +1213,9 @@ def kernel_route_phases(dev, tag: str, args, kernels: dict, cfg, sc, gn, dx, win
                                bound_by=b4[1])
     log(f"  bound K3 16 iters {b3[16][0]:.4f} ms ({b3[16][1]}), 8 iters {b3[8][0]:.4f} ms "
         f"({b3[8][1]}); K4 {b4[0]:.4f} ms ({b4[1]}) {tag}")
+    kernels["gn_mehrotra"].update(ms_8_iters=t["k3_8"], plain_ms_8_iters=t["k3_8_plain"],
+                                  bound_ms_8_iters=b3[8][0])
+    narrow_k3_report(dev, tag, kernels, k3_ptxas, gn, G, h0, Hp)
 
 
 def wide_phases(dev, tag: str, args, kernels: dict, dx_init) -> None:
@@ -1525,6 +1552,106 @@ def wide_phases(dev, tag: str, args, kernels: dict, dx_init) -> None:
               + [("N40 8 iters", qps["fmincon"], plans["fmincon"], 8, None),
                  ("N40 2 iters warm", qps["fmincon"], plans["fmincon"], 2,
                   mehrotra_h(*qps["fmincon"], 8, want_state=True, plan=plans["fmincon"])[2])])
+
+
+def narrow_split_tool():
+    """tools/k2_split.py: K2's and K3's phase-clock builds and readers."""
+    split_tool()
+    import k2_split
+
+    return k2_split
+
+
+def narrow_inputs(dev, gn, G, h0, Hp, B: int, seed: int = 2) -> dict:
+    """The bench QP at batch B on seeded inputs (H and g from K1, h in
+    step_rhs's order), in tools/k2_split.py's layout."""
+    from lbmpc_tpu_torch.ops.qp_kernel import step_rhs
+
+    dx, win, z = bench_inputs(np.random.default_rng(seed), B, G.shape[1], dev)
+    _, H, g = gn(z, dx, win)
+    return dict(gn=gn, G=G, h0=h0, Hp=Hp, H=H, g=g, h=step_rhs(h0, Hp, G, dx, z),
+                ins=(z, dx, win))
+
+
+def narrow_cut(qp: dict, B: int, dev) -> dict:
+    """The first B lanes of narrow_inputs' batch."""
+    import torch
+
+    z, dx, win = qp["ins"]
+    c = lambda a: a[:B].contiguous()
+    return dict(qp, H=c(qp["H"]), g=c(qp["g"]), h=c(qp["h"]),
+                ins=(c(z), c(dx), win.index(torch.arange(B, device=dev))))
+
+
+def narrow_k2_report(dev, tag: str, kernels: dict, ptxas: str, gn, G, h0, Hp) -> None:
+    """Phase 6's K2 report: its times at 8 cold and 2 warm iterations at
+    batch 2048, the cohort and the repair's K, its lanes a block and an SM,
+    its ptxas registers and spills, and its split by phase (the clocked
+    build of tools/k2_split.py, at batch 2048)."""
+    from lbmpc_tpu_torch.ops import mono_kernel, qp_kernel
+    from lbmpc_tpu_torch.ops.qp_kernel import mehrotra_h, narrow_launch
+
+    tool = narrow_split_tool()
+    mI, nz = G.shape
+    big = narrow_inputs(dev, gn, G, h0, Hp, COHORT)
+    log(f"  K2 ptxas: {ptxas} {tag}")
+    by_batch = {}
+    for B in (BATCH, COHORT, REPAIR_K):
+        qp = narrow_cut(big, B, dev)
+        H, g, h = qp["H"], qp["g"], qp["h"]
+        st = mehrotra_h(G, H, g, h, IPM_SCHED[0], want_state=True)[2]
+        t8 = cuda_ms(lambda: mehrotra_h(G, H, g, h, IPM_SCHED[0], want_state=True), reps=10)
+        t2 = cuda_ms(lambda: mehrotra_h(G, H, g, h, IPM_SCHED[1], warm=st), reps=10)
+        warps, blocks, smem = narrow_launch(mI, nz, B, sms=qp_kernel.sm_count(dev))
+        lanes = tool.resident_lanes(qp_kernel.KERNEL, mI, nz, 0, warps)
+        require(tool.smem_bytes(qp_kernel.KERNEL, mI, nz, 0, warps) == smem,
+                f"K2's shared memory at B={B} is the host's narrow_smem_bytes ({smem} B)")
+        by_batch[B] = [t8, t2]
+        log(f"  time k2 B={B}: {IPM_SCHED[0]} iters {t8:.4f} ms, {IPM_SCHED[1]} warm "
+            f"{t2:.4f} ms; {warps} lanes a block, {blocks} blocks, {smem} B shared, "
+            f"{lanes} lanes an SM {tag}")
+    kernels["mehrotra_h"].update(ms_by_batch={str(k): v for k, v in by_batch.items()},
+                                 ms_2_iters=by_batch[BATCH][1], ptxas=ptxas)
+    qp = narrow_cut(big, BATCH, dev)
+    st = mehrotra_h(G, qp["H"], qp["g"], qp["h"], IPM_SCHED[0], want_state=True)[2]
+    tool.split_cases(qp, tool.kernels(clocked=True),
+                     {"k2": qp_kernel.KERNEL, "k3": mono_kernel.KERNEL},
+                     [("k2", IPM_SCHED[0], None), ("k2", IPM_SCHED[1], st)],
+                     lambda c: log(f"  split K2 B={c['B']} {c['iters']}"
+                                   f"{' warm' if c['warm'] else ''} iters: "
+                                   f"{split_tool().format_split(c)} {tag}"))
+
+
+def narrow_k3_report(dev, tag: str, kernels: dict, ptxas: str, gn, G, h0, Hp) -> None:
+    """Phase 16's K3 report, as narrow_k2_report's for K2: at 16 and 8
+    iterations (the xla route's schedule)."""
+    from lbmpc_tpu_torch.ops import mono_kernel, qp_kernel
+    from lbmpc_tpu_torch.ops.mono_kernel import MonoPhase
+    from lbmpc_tpu_torch.ops.qp_kernel import narrow_launch
+
+    tool = narrow_split_tool()
+    mI, nz = G.shape
+    big = narrow_inputs(dev, gn, G, h0, Hp, COHORT, seed=7)
+    monos = {it: MonoPhase(gn, G, h0, Hp, it) for it in XLA_SCHED}
+    log(f"  K3 ptxas: {ptxas} {tag}")
+    by_batch = {}
+    for B in (BATCH, COHORT, REPAIR_K):
+        ins = narrow_cut(big, B, dev)["ins"]
+        by_batch[B] = [cuda_ms(lambda: monos[it](*ins), reps=5) for it in XLA_SCHED]
+        warps, blocks, smem = narrow_launch(mI, nz, B, q=Q, sms=qp_kernel.sm_count(dev))
+        lanes = tool.resident_lanes(mono_kernel.KERNEL, mI, nz, Q, warps)
+        require(tool.smem_bytes(mono_kernel.KERNEL, mI, nz, Q, warps) == smem,
+                f"K3's shared memory at B={B} is the host's narrow_smem_bytes ({smem} B)")
+        log(f"  time k3 B={B}: {XLA_SCHED[0]} iters {by_batch[B][0]:.4f} ms, {XLA_SCHED[1]} "
+            f"iters {by_batch[B][1]:.4f} ms; {warps} lanes a block, {blocks} blocks, {smem} B "
+            f"shared, {lanes} lanes an SM {tag}")
+    kernels["gn_mehrotra"].update(ms_by_batch={str(k): v for k, v in by_batch.items()},
+                                  ptxas=ptxas)
+    tool.split_cases(narrow_cut(big, BATCH, dev), tool.kernels(clocked=True),
+                     {"k2": qp_kernel.KERNEL, "k3": mono_kernel.KERNEL},
+                     [("k3", it, None) for it in XLA_SCHED],
+                     lambda c: log(f"  split K3 B={c['B']} {c['iters']} iters (loop): "
+                                   f"{split_tool().format_split(c)} {tag}"))
 
 
 def split_tool():
@@ -2006,7 +2133,8 @@ def finish(card: str, kind: str, kernels: dict, args) -> int:
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
         extra = ("max_abs_err_held", "nan_lanes", "far_from_float64", "ms_8_iters",
-                 "bound_ms_8_iters", "bound_ms_dense")
+                 "plain_ms_8_iters", "bound_ms_8_iters", "bound_ms_dense", "ms_2_iters",
+                 "ms_by_batch", "ptxas")
         rows = [{**{k: v.get(k) for k in keys}, **{k: v[k] for k in extra if k in v}}
                 for v in kernels.values()]
         require(all(r[k] is not None for r in rows for k in keys if k != "library_ms"),

@@ -88,12 +88,12 @@ __device__ __forceinline__ void accumulate(const float (&Dr)[R], const float (&e
 // reads the constant block cst, the lane's z (nz = N + 1) and dx0 (kN), and
 // its window staged in win (synchronised by the caller); uses D as scratch;
 // writes e (ne floats) to eb and H (nz x nz) to Hb, which may point to
-// global or shared memory. Returns g[c] in thread c < nz.
+// global or shared memory, with row stride hs. Returns g[c] in thread c < nz.
 __device__ __forceinline__ float lane(const float* __restrict__ cst,
                                       const float* __restrict__ zb,
                                       const float* __restrict__ dx0b, const float* win,
                                       float* D, int c, int N, int q, float* eb,
-                                      float* Hb) {
+                                      float* Hb, int hs) {
   const int nz = N + 1;
   const int n_run = N - 2;
 
@@ -262,8 +262,8 @@ __device__ __forceinline__ float lane(const float* __restrict__ cst,
   for (int s = 0; s < kPairSlots; ++s) {
     if (pi[s] >= 0) {
       const float v = hacc[s] + Hc[pi[s] * nz + pj[s]];
-      Hb[pi[s] * nz + pj[s]] = v;
-      Hb[pj[s] * nz + pi[s]] = v;
+      Hb[pi[s] * hs + pj[s]] = v;
+      Hb[pj[s] * hs + pi[s]] = v;
     }
   }
   return gacc;

@@ -45,7 +45,7 @@ gn_phase_kernel(const float* __restrict__ cst, const float* __restrict__ z,
   gn::stage_window(win, X, Y, valid, b, q, c, 32);
   __syncwarp();
   const float gacc = gn::lane(cst, z + (size_t)b * nz, dx0 + (size_t)b * gn::kN, win, D,
-                              c, N, q, e_out + (size_t)b * ne, H_out + (size_t)b * nz * nz);
+                              c, N, q, e_out + (size_t)b * ne, H_out + (size_t)b * nz * nz, nz);
   if (c < nz) g_out[(size_t)b * nz + c] = gacc;
 }
 

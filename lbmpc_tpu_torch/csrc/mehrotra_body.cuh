@@ -1,6 +1,7 @@
 // mehrotra_body.cuh — a fixed-iteration Mehrotra predictor-corrector loop
-// for one lane on one 256-thread block, shared by mehrotra_h.cu (K2),
-// gn_mehrotra.cu (K3) and mehrotra.cu (K4).
+// for one lane on one 256-thread block: K4's (mehrotra.cu). K2 and K3 ran it
+// too before they moved to one warp a lane (mehrotra_warp.cuh, which keeps
+// this loop's order of operations); its phase clocks measured that split.
 //
 //   min 1/2 x'H x + g'x  s.t.  G x <= h   (G shared by the batch)
 //
@@ -79,6 +80,61 @@ __device__ __forceinline__ Shared carve(float* smem, int mI, int nz) {
   return sh;
 }
 
+// Phase clocks, for tools/k2_split.py only: built with K2_PHASE_CLOCKS,
+// thread 0 of each block adds the clock64() cycles of every phase of every
+// iteration into kClockSlots counters (each stamp is a block barrier in that
+// build, so thread 0's clock is the block's, and the block is one lane) and
+// solve() stores them in k2_clocks[lane * kClockSlots + phase]. The
+// package's build never defines the macro, and then PhaseClock is empty.
+enum ClockPhase { kClkGx, kClkGtz, kClkAssemble, kClkEquil, kClkFactor, kClkGtv, kClkSweep,
+                  kClkGdx, kClkReduce, kClkTotal, kClockSlots };
+#ifdef K2_PHASE_CLOCKS
+constexpr int kClockLanes = 16384;
+__device__ unsigned long long k2_clocks[kClockLanes * kClockSlots];
+struct PhaseClock {
+  long long last, first;
+  unsigned long long acc[kClockSlots];
+  __device__ __forceinline__ void start() {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      last = first = clock64();
+#pragma unroll
+      for (int p = 0; p < kClockSlots; ++p) acc[p] = 0;
+    }
+  }
+  __device__ __forceinline__ void mark(int p) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const long long t = clock64();
+      acc[p] += t - last;
+      last = t;
+    }
+  }
+  __device__ __forceinline__ void store() {
+    if (threadIdx.x == 0 && blockIdx.x < kClockLanes) {
+      acc[kClkTotal] = clock64() - first;
+#pragma unroll
+      for (int p = 0; p < kClockSlots; ++p) k2_clocks[blockIdx.x * kClockSlots + p] = acc[p];
+    }
+  }
+};
+// `<source>_clocks(out, lanes)`: the first `lanes` lanes' counters of the
+// last launch, copied to the host array `out`
+#define K2_CLOCKS_EXPORT(source)                                                         \
+  extern "C" int source##_clocks(unsigned long long* out, int lanes) {                   \
+    return (int)cudaMemcpyFromSymbol(                                                    \
+        out, mehrotra::k2_clocks,                                                        \
+        (size_t)lanes * mehrotra::kClockSlots * sizeof(unsigned long long));             \
+  }
+#else
+#define K2_CLOCKS_EXPORT(source)
+struct PhaseClock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void store() {}
+};
+#endif
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
@@ -153,7 +209,7 @@ __device__ __forceinline__ void kkt(const Shared& sh, int mI, int nz,
                                     const float (&ss)[kRowsPerThread],
                                     const float (&rc)[kRowsPerThread],
                                     float (&ds)[kRowsPerThread],
-                                    float (&dz)[kRowsPerThread]) {
+                                    float (&dz)[kRowsPerThread], PhaseClock& clk) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int t = 0; t < kRowsPerThread; ++t) {
@@ -162,6 +218,7 @@ __device__ __forceinline__ void kkt(const Shared& sh, int mI, int nz,
   }
   __syncthreads();
   col_reduce(sh, sh.vrow, sh.gt, mI, nz);
+  clk.mark(kClkGtv);
   if (warp == 0) {
     float b = lane < nz ? -(sh.rd[lane] + sh.gt[lane]) * sh.sc[lane] : 0.f;
     float y = 0.f;
@@ -179,6 +236,7 @@ __device__ __forceinline__ void kkt(const Shared& sh, int mI, int nz,
     if (lane < nz) sh.dx[lane] = u * sh.sc[lane];
   }
   __syncthreads();
+  clk.mark(kClkSweep);
 #pragma unroll
   for (int t = 0; t < kRowsPerThread; ++t) {
     const int r = threadIdx.x + t * kThreads;
@@ -188,6 +246,7 @@ __device__ __forceinline__ void kkt(const Shared& sh, int mI, int nz,
       ds[t] = -rp[t] - gdx;
     }
   }
+  clk.mark(kClkGdx);
 }
 
 // Block min over the rows of the step ratio (-v / dv where dv < 0, else BIG)
@@ -259,6 +318,8 @@ __device__ __forceinline__ void solve(const Shared& sh, int mI, int nz, int iter
   }
 
   const float inv_m = 1.f / (float)mI;
+  PhaseClock clk;
+  clk.start();
   for (int it = 0; it < iters; ++it) {
     float rp[kRowsPerThread], ss[kRowsPerThread], d[kRowsPerThread];
 #pragma unroll
@@ -273,6 +334,7 @@ __device__ __forceinline__ void solve(const Shared& sh, int mI, int nz, int iter
       }
     }
     __syncthreads();
+    clk.mark(kClkGx);
     col_reduce(sh, sh.vrow, sh.gt, mI, nz);  // G'z
     if (tid < nz) {
       float hx = 0.f;
@@ -285,6 +347,7 @@ __device__ __forceinline__ void solve(const Shared& sh, int mI, int nz, int iter
       if (r < mI) sh.vrow[r] = d[t];
     }
     __syncthreads();
+    clk.mark(kClkGtz);
 
     // M = G' diag(d) G + H + 1e-6 I (lower triangle of H)
 #pragma unroll
@@ -299,9 +362,11 @@ __device__ __forceinline__ void solve(const Shared& sh, int mI, int nz, int iter
       }
     }
     __syncthreads();
+    clk.mark(kClkAssemble);
     if (tid < nz)
       sh.sc[tid] = kEquilibrate ? 1.f / sqrtf(fmaxf(sh.M[tid * nz + tid], 1e-30f)) : 1.f;
     __syncthreads();
+    clk.mark(kClkEquil);
 
     // left-looking Cholesky of the (equilibrated) M, lane r = row r
     if (warp == 0) {
@@ -318,6 +383,7 @@ __device__ __forceinline__ void solve(const Shared& sh, int mI, int nz, int iter
       }
     }
     __syncthreads();
+    clk.mark(kClkFactor);
 
     // predictor
     float mu_part = 0.f, rc[kRowsPerThread], dsa[kRowsPerThread], dza[kRowsPerThread];
@@ -328,7 +394,7 @@ __device__ __forceinline__ void solve(const Shared& sh, int mI, int nz, int iter
       dsa[t] = dza[t] = 0.f;
       if (r < mI) mu_part += rc[t];
     }
-    kkt(sh, mI, nz, d, rp, ss, rc, dsa, dza);
+    kkt(sh, mI, nz, d, rp, ss, rc, dsa, dza, clk);
     const float dza_pad = pad_dz(kPadH * z_pad);
     const float mu = block_reduce2<false>(mu_part, 0.f, sh.red).x * inv_m;
     const float2 ra = ratio_min(mI, s, dsa, z, dza,
@@ -351,7 +417,7 @@ __device__ __forceinline__ void solve(const Shared& sh, int mI, int nz, int iter
       rc[t] = s[t] * z[t] + dsa[t] * dza[t] - sigma * mu;
       ds[t] = dz[t] = 0.f;
     }
-    kkt(sh, mI, nz, d, rp, ss, rc, ds, dz);
+    kkt(sh, mI, nz, d, rp, ss, rc, ds, dz, clk);
     const float dz_pad = pad_dz(kPadH * z_pad - sigma * mu);
     const float2 rs = ratio_min(mI, s, ds, z, dz,
                                 pad_here ? pad_ratio(z_pad, dz_pad) : kBig, sh.red);
@@ -364,7 +430,9 @@ __device__ __forceinline__ void solve(const Shared& sh, int mI, int nz, int iter
     }
     if (kPad) z_pad += ad * dz_pad;
     __syncthreads();
+    clk.mark(kClkReduce);
   }
+  clk.store();
 }
 
 }  // namespace mehrotra

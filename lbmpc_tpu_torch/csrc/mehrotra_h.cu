@@ -1,82 +1,92 @@
 // mehrotra_h.cu — a fixed-iteration Mehrotra predictor-corrector QP with a
-// Hessian per lane, one thread block per lane.
+// Hessian per lane, one warp per lane and several lanes a block.
 //
 // Replaces the TPU kernel lbmpc_tpu/ops/pallas_ipm.py,
 // build_pallas_qp_solver_h -> kernel/_kernel_body: for each lane,
 //   min 1/2 x'H_b x + g_b'x  s.t.  G x <= h_b   (G shared by the batch)
 // by `iters` Mehrotra iterations with d capped at d_cap and Jacobi
-// equilibration (mehrotra_body.cuh). Start: cold s = max(h, 1), z = 1; or
+// equilibration (mehrotra_warp.cuh). Start: cold s = max(h, 1), z = 1; or
 // warm s = max(s0, eps), z = max(z0, eps) (the (B, mI) warm state is in G's
-// row order).
+// row order). nz <= 32, mI <= 1024.
 //
-// What bounds it on an H100: operations. Each iteration assembles the
-// nz(nz+1)/2 unique entries of G' diag(d) G over all mI rows (about
-// nz^2 * mI multiply-adds per lane) — the float32 work dwarfs the bytes moved
-// (H, g, h in; x, mu, s, z out). In practice the serial parts — the one-warp
-// factorization and triangular sweeps — set the time.
+// What bounds it on an H100: operations by the roofline (the assembly of
+// G' diag(d) G, about nz^2 mI / 2 multiply-adds a lane and iteration,
+// dwarfs the bytes moved: H, g, h in; x, mu, s, z out); in practice the
+// issue slots of the assembly's shared-memory reads and FMAs, and the
+// latency of each lane's serial chain (factorization, sweeps).
 //
-// Design: one 256-thread block per lane, G and H_b staged in shared memory,
-// one thread per constraint row (mehrotra_body.cuh).
+// Design: a block of `warps` warps (ops/qp_kernel.narrow_launch picks it from
+// mI, nz and B) stages G once in shared memory; then each warp runs its own
+// lane's loop with no block barrier (mehrotra_warp.cuh), so the SM interleaves
+// many independent serial chains. The per-row state stays in registers at
+// mI <= 256 and moves to the warp's shared memory above.
 
 #include <cuda_runtime.h>
 
-#include "mehrotra_body.cuh"
+#include "mehrotra_warp.cuh"
 
 namespace {
 
-using namespace mehrotra;
+using namespace mwarp;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kMinBlocksPerSM = 2;   // 16 warps an SM: 128 registers a thread
+
+template <int kN, class R>
+__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocksPerSM)
 mehrotra_h_kernel(const float* __restrict__ G, const float* __restrict__ H,
                   const float* __restrict__ g, const float* __restrict__ h,
                   const float* __restrict__ s0, const float* __restrict__ z0,
                   float* __restrict__ x_out, float* __restrict__ mu_out,
-                  float* __restrict__ s_out, float* __restrict__ z_out,
-                  int mI, int nz, int iters, float tau, float d_cap, float warm_eps) {
-  extern __shared__ float smem[];
-  const Shared sh = carve(smem, mI, nz);
-  const int tid = threadIdx.x;
-  const size_t b = blockIdx.x;
-  for (int i = tid; i < mI * nz; i += kThreads) sh.G[i] = G[i];
-  for (int i = tid; i < nz * nz; i += kThreads) sh.H[i] = H[b * nz * nz + i];
-  if (tid < nz) {
-    sh.g[tid] = g[b * nz + tid];
-    sh.x[tid] = 0.f;
-  }
-
-  float s[kRowsPerThread], z[kRowsPerThread], hr[kRowsPerThread];
-#pragma unroll
-  for (int t = 0; t < kRowsPerThread; ++t) {
-    const int r = tid + t * kThreads;
-    s[t] = z[t] = hr[t] = 0.f;
-    if (r < mI) {
-      hr[t] = h[b * mI + r];
-      if (s0 != nullptr) {
-        s[t] = fmaxf(s0[b * mI + r], warm_eps);
-        z[t] = fmaxf(z0[b * mI + r], warm_eps);
-      } else {
-        s[t] = fmaxf(hr[t], 1.f);
-        z[t] = 1.f;
-      }
+                  float* __restrict__ s_out, float* __restrict__ z_out, int B, int mI,
+                  int nz, int iters, float tau, float d_cap, float warm_eps) {
+  extern __shared__ __align__(16) float smem[];
+  stage_g(smem, G, mI, nz);
+  __syncthreads();  // the only block barrier: G is staged
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;  // whole warps leave together
+  const WarpMem wm = carve(smem, mI, nz, warp, 0);
+  stage_h<kN>(wm, H + (size_t)b * nz * nz, lane, nz);
+  for (int i = lane; i < kVec; i += 32) wm.xs[i] = wm.dxs[i] = 0.f;
+  const float gl = lane < nz ? g[(size_t)b * nz + lane] : 0.f;
+  R rows(wm.rows, mI, lane);
+  const size_t off = (size_t)b * mI;
+  for_rows<R>(lane, mI, [&](int t, int r) {
+    rows.h(t) = h[off + r];
+    if (s0 != nullptr) {
+      rows.s(t) = fmaxf(s0[off + r], warm_eps);
+      rows.z(t) = fmaxf(z0[off + r], warm_eps);
+    } else {
+      rows.s(t) = fmaxf(rows.h(t), 1.f);
+      rows.z(t) = 1.f;
     }
-  }
-  __syncthreads();
+  });
+  __syncwarp();
 
-  solve<true, false>(sh, mI, nz, iters, tau, d_cap, s, z, hr);
+  const float x = solve<kN>(smem, wm, rows, mI, nz, iters, tau, d_cap, gl, b);
 
-  const float mu = block_mu(mI, s, z, sh.red);
+  const float mu = lane_mu(rows, lane, mI);
   if (s_out != nullptr) {
-#pragma unroll
-    for (int t = 0; t < kRowsPerThread; ++t) {
-      const int r = tid + t * kThreads;
-      if (r < mI) {
-        s_out[b * mI + r] = s[t];
-        z_out[b * mI + r] = z[t];
-      }
-    }
+    for_rows<R>(lane, mI, [&](int t, int r) {
+      s_out[off + r] = rows.s(t);
+      z_out[off + r] = rows.z(t);
+    });
   }
-  if (tid == 0) mu_out[b] = mu;
-  if (tid < nz) x_out[b * nz + tid] = sh.x[tid];
+  if (lane == 0) mu_out[b] = mu;
+  if (lane < nz) x_out[(size_t)b * nz + lane] = x;
+}
+
+// The kernel instance for (mI, nz): kN = 8 ceil(nz / 8), the row state in
+// registers up to kRegRowsMax rows.
+template <class F>
+auto by_shape(int mI, int nz, F&& f) {
+  const bool reg = mI <= kRegRowsMax;
+  switch (padded_nz(nz)) {
+    case 8: return reg ? f(mehrotra_h_kernel<8, RegRows>) : f(mehrotra_h_kernel<8, SmemRows>);
+    case 16: return reg ? f(mehrotra_h_kernel<16, RegRows>) : f(mehrotra_h_kernel<16, SmemRows>);
+    case 24: return reg ? f(mehrotra_h_kernel<24, RegRows>) : f(mehrotra_h_kernel<24, SmemRows>);
+    default: return reg ? f(mehrotra_h_kernel<32, RegRows>) : f(mehrotra_h_kernel<32, SmemRows>);
+  }
 }
 
 }  // namespace
@@ -85,21 +95,43 @@ extern "C" int mehrotra_h_launch(const float* G, const float* H, const float* g,
                                  const float* h, const float* s0, const float* z0,
                                  float* x, float* mu, float* s_out, float* z_out,
                                  int B, int mI, int nz, int iters, float tau,
-                                 float d_cap, float warm_eps, void* stream) {
-  if (nz < 1 || nz > kNzMax || mI < 1 || mI > kMaxRows || B < 0 || iters < 0)
+                                 float d_cap, float warm_eps, int warps, void* stream) {
+  if (nz < 1 || nz > kNzMax || mI < 1 || mI > kMaxRows || B < 0 || iters < 0 || warps < 1
+      || warps > kMaxWarps)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t smem = shared_floats(mI, nz) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t st = cudaFuncSetAttribute(
-        mehrotra_h_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = block_floats(mI, nz, warps, 0) * sizeof(float);
+  const int blocks = (B + warps - 1) / warps;
+  return by_shape(mI, nz, [&](auto kernel) {
+    const cudaError_t st =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (st != cudaSuccess) return (int)st;
-  }
-  mehrotra_h_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      G, H, g, h, s0, z0, x, mu, s_out, z_out, mI, nz, iters, tau, d_cap, warm_eps);
-  return (int)cudaGetLastError();
+    kernel<<<blocks, warps * 32, smem, (cudaStream_t)stream>>>(
+        G, H, g, h, s0, z0, x, mu, s_out, z_out, B, mI, nz, iters, tau, d_cap, warm_eps);
+    return (int)cudaGetLastError();
+  });
+}
+
+// The dynamic shared memory of a block of `warps` lanes (bytes), and the
+// lanes one SM holds then (CUDA's occupancy calculator).
+extern "C" long long mehrotra_h_smem_bytes(int mI, int nz, int q, int warps) {
+  (void)q;
+  return (long long)(block_floats(mI, nz, warps, 0) * sizeof(float));
+}
+
+extern "C" int mehrotra_h_resident_lanes(int mI, int nz, int q, int warps) {
+  (void)q;
+  const size_t smem = block_floats(mI, nz, warps, 0) * sizeof(float);
+  return by_shape(mI, nz, [&](auto kernel) {
+    int blocks = 0;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, warps * 32, smem);
+    return blocks * warps;
+  });
 }
 
 extern "C" const char* mehrotra_h_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+MWARP_CLOCKS_EXPORT(mehrotra_h)

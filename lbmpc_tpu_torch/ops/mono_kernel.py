@@ -5,7 +5,8 @@ Port of lbmpc_tpu/ops/pallas_gn.py, build_pallas_gn_kernel(...,
 ipm=dict(iters, d_cap)) -> kernel_ipm (the qp_kernel="pallas_mono" route of
 controllers/sqp_fused), over its domain in two kernels:
 - K3 (csrc/gn_mehrotra.cu): the fmincon family at nz <= 32, K1's GN body
-  and K2's loop;
+  and K2's loop on one warp a lane, several lanes a block (the launch shape
+  from ops/qp_kernel.narrow_launch);
 - K3w (csrc/gn_mehrotra_wide.cu): every other shape up to nz = 128, both
   families, K1w's GN body and K2w's loop (LBMPC_N40 uncut, LBMPC_N50, the
   casadi shapes the reference's VMEM model admits).
@@ -27,9 +28,9 @@ from lbmpc_tpu_torch.oracle import DataWindow
 from lbmpc_tpu_torch.ops._cuda import WIDE_FLAGS, F, I, P, CudaKernel, check, ptr
 from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
 from lbmpc_tpu_torch.ops.qp_kernel import (MI_MAX, WidePlan, check_plan, mehrotra_h_plain,
-                                           step_rhs)
+                                           narrow_launch, sm_count, step_rhs)
 
-KERNEL = CudaKernel("gn_mehrotra", [P] * 13 + [I, I, I, I, I, F, F, P])
+KERNEL = CudaKernel("gn_mehrotra", [P] * 13 + [I, I, I, I, I, F, F, I, P])
 KERNEL_WIDE = CudaKernel("gn_mehrotra_wide", [P] * 15 + [I, I, I, I, I, F, F, I, P],
                          flags=WIDE_FLAGS)
 
@@ -106,7 +107,8 @@ class MonoPhase:
         win = (ptr(gn.cst), ptr(z), ptr(dx0), ptr(window.X), ptr(window.Y),
                ptr(window.valid))
         if self.narrow:
-            KERNEL.launch(dev, *win, ptr(self.G), *rest)
+            warps = narrow_launch(mI, gn.nz, Bsz, q=q, sms=sm_count(dev))[0]
+            KERNEL.launch(dev, *win, ptr(self.G), *rest, I(warps))
         else:
             plan = self.plan
             check_plan(plan, mI, gn.nz, dev)

@@ -1,11 +1,13 @@
 """K2, K2w and K4 — fixed-iteration Mehrotra predictor-corrector QPs, the
 whole loop in one launch: K2 with a Hessian per lane at nz <= 32
-(csrc/mehrotra_h.cu), K2w the same at 32 < nz <= 128 (csrc/mehrotra_h_wide.cu:
-G stays in device memory, the factorization is block-wide), K4 with one H
-shared by the batch (csrc/mehrotra.cu). K2 and K4 run the loop of
-csrc/mehrotra_body.cuh, which K3 (ops/mono_kernel) runs too; K2w runs the
-same iteration from csrc/mehrotra_wide.cuh. mehrotra_h picks K2 or K2w by
-nz, with one wrapper contract.
+(csrc/mehrotra_h.cu: one warp a lane, several lanes a block, the launch
+shape from narrow_launch), K2w the same at 32 < nz <= 128
+(csrc/mehrotra_h_wide.cu: G stays in device memory, the factorization is
+block-wide), K4 with one H shared by the batch (csrc/mehrotra.cu). K2 runs
+the loop of csrc/mehrotra_warp.cuh, which K3 (ops/mono_kernel) runs too; K4
+runs csrc/mehrotra_body.cuh's, and K2w the same iteration from
+csrc/mehrotra_wide.cuh. mehrotra_h picks K2 or K2w by nz, with one wrapper
+contract.
 
 Ports of lbmpc_tpu/ops/pallas_ipm.py: build_pallas_qp_solver_h (K2) and
 build_pallas_qp_solver (K4). Each lane solves min 1/2 x'H x + g'x s.t.
@@ -25,7 +27,7 @@ import torch.nn.functional as F_
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.ops._cuda import WIDE_FLAGS, F, I, P, CudaKernel, check, ptr
 
-KERNEL = CudaKernel("mehrotra_h", [P] * 10 + [I, I, I, I, F, F, F, P])
+KERNEL = CudaKernel("mehrotra_h", [P] * 10 + [I, I, I, I, F, F, F, I, P])
 KERNEL_WIDE = CudaKernel("mehrotra_h_wide", [P] * 12 + [I, I, I, I, F, F, F, P],
                          flags=WIDE_FLAGS)
 KERNEL_SHARED = CudaKernel("mehrotra", [P] * 7 + [I, I, I, I, F, F, P])
@@ -33,8 +35,82 @@ KERNEL_SHARED = CudaKernel("mehrotra", [P] * 7 + [I, I, I, I, F, F, P])
 BIG = 1e6           # ratio-test sentinel (pallas_ipm.py:34)
 RIDGE = 1e-6        # KKT ridge
 SHARED_D_CAP = 1e7  # build_pallas_qp_solver's d cap (pallas_ipm.py:723)
-NZ_MAX, MI_MAX = 32, 1024   # csrc/mehrotra_body.cuh kNzMax, kMaxRows (K2, K4)
+NZ_MAX, MI_MAX = 32, 1024   # csrc/mehrotra_warp.cuh kNzMax, kMaxRows (K2, K3; K4 the same)
 NZ_MAX_WIDE = 128           # csrc/mehrotra_wide.cuh kNzMax (K2w)
+# K2's and K3's launch shape (csrc/mehrotra_warp.cuh): lanes a block at most,
+# the widths of x and dx in a warp's memory, the rows up to which a lane's
+# per-row state stays in registers, and its vectors in shared memory above
+NARROW_MAX_WARPS, NARROW_VEC, NARROW_REG_ROWS, NARROW_STATE_VECS = 8, 36, 256, 7
+SMEM_OPTIN = 232448         # shared memory a block may use on an H100 (227 KB)
+H100_SMS = 132
+
+
+def narrow_padded_nz(nz: int) -> int:
+    """The width K2 and K3 are built for: 8 ceil(nz / 8) (csrc/mehrotra_warp.cuh
+    padded_nz)."""
+    return -(-nz // 8) * 8
+
+
+def narrow_g_stride(nz: int) -> int:
+    """G's row stride in K2's and K3's shared memory: the padded width + 4,
+    4 mod 8 (csrc/mehrotra_warp.cuh g_stride)."""
+    return narrow_padded_nz(nz) + 4
+
+
+def narrow_warp_floats(mI: int, nz: int, q: int = 0) -> int:
+    """Floats of one lane's (warp's) shared memory in K2 (q = 0) or K3 (q:
+    its window of q points and its Jacobian rows): x and dx, H and M (rows
+    of the padded width, odd stride), one mI-vector, and above
+    NARROW_REG_ROWS rows the per-row state (csrc/mehrotra_warp.cuh
+    warp_floats)."""
+    r4 = lambda n: (n + 3) & ~3
+    extra = q * 8 + 5 * 32 if q else 0
+    kn = narrow_padded_nz(nz)
+    return (2 * NARROW_VEC + 2 * r4(kn * (kn + 1)) + r4(mI)
+            + (NARROW_STATE_VECS * r4(mI) if mI > NARROW_REG_ROWS else 0) + extra)
+
+
+def narrow_smem_bytes(mI: int, nz: int, warps: int, q: int = 0) -> int:
+    """A block's dynamic shared memory: G once (rows of narrow_g_stride)
+    and each of its warps' own region."""
+    return 4 * (mI * narrow_g_stride(nz) + warps * narrow_warp_floats(mI, nz, q))
+
+
+def narrow_launch(mI: int, nz: int, B: int, q: int = 0, sms: int = H100_SMS) -> tuple:
+    """K2's (q = 0) and K3's (q = the window's points) launch shape for a
+    batch of B lanes on a card of `sms` SMs: (warps a block, blocks, the
+    block's shared memory in bytes). A warp runs one lane. A block holds the
+    most lanes, a power of two up to NARROW_MAX_WARPS, that still give every
+    SM a block: up to `sms` lanes each lane has a block of its own (a small
+    batch, such as the repair's, sees one lane's latency, so it spreads as
+    wide as it can), and a large one shares each staged copy of G among 8
+    lanes. Fewer lanes where the block's shared memory would pass
+    SMEM_OPTIN (at mI = 1024, nz = 32: two). Raises where the kernels do not
+    take the shape or one lane does not fit."""
+    if not (1 <= nz <= NZ_MAX and 1 <= mI <= MI_MAX and B >= 0 and q >= 0):
+        raise ValueError(f"K2 and K3 take 1 <= nz <= {NZ_MAX}, 1 <= mI <= {MI_MAX} and a "
+                         f"batch B >= 0 (got nz={nz}, mI={mI}, B={B}, q={q})")
+    warps = NARROW_MAX_WARPS
+    while warps > 1 and -(-B // warps) < sms:
+        warps //= 2
+    while warps > 1 and narrow_smem_bytes(mI, nz, warps, q) > SMEM_OPTIN:
+        warps //= 2
+    smem = narrow_smem_bytes(mI, nz, warps, q)
+    if smem > SMEM_OPTIN:
+        raise ValueError(f"one lane of K2/K3 at mI={mI}, nz={nz}, q={q} needs {smem} bytes "
+                         f"of shared memory, more than the {SMEM_OPTIN} a block may use")
+    return warps, -(-B // warps), smem
+
+
+_SMS: dict = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (read once per device)."""
+    key = torch.device(device).index or 0
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(key).multi_processor_count
+    return _SMS[key]
 
 
 def analyze_constraint_rows(G: np.ndarray) -> dict:
@@ -266,8 +342,10 @@ def mehrotra_h(G, H, g, h, iters: int, tau: float = 0.995, d_cap: float = 1e6,
               torch.empty(Bsz, mI, dtype=torch.float32, device=dev))
              if want_state else None)
     null = P(None)
+    extra = ()
     if nz <= NZ_MAX:
         kernel, g_args = KERNEL, (ptr(G),)
+        extra = (I(narrow_launch(mI, nz, Bsz, sms=sm_count(dev))[0]),)
     else:
         if plan is None:
             plan = WidePlan(G)
@@ -280,7 +358,7 @@ def mehrotra_h(G, H, g, h, iters: int, tau: float = 0.995, d_cap: float = 1e6,
                   ptr(state[0]) if want_state else null,
                   ptr(state[1]) if want_state else null,
                   I(Bsz), I(mI), I(nz), I(iters), F(tau), F(d_cap),
-                  F(warm_eps))
+                  F(warm_eps), *extra)
     return x, mu, state
 
 

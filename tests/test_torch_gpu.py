@@ -495,3 +495,149 @@ def test_mono_wide_kernel_equals_k1w_k2w(cuda, family, nz):
     assert (e - ep).abs().max().item() <= 1e-5 * hmax
     assert (g - gp).abs().max().item() <= 1e-5 * hmax
     assert bool(d.isfinite().all())
+
+
+def _bench_qp(cuda, bench, B, seed):
+    """The bench QP (nz=21, G (214, 21)) at batch B: H and g from K1, h in
+    step_rhs's order; with the GN inputs (z, dx, window)."""
+    sc, kw = bench
+    gn = GNPhase(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, device=cuda, **kw)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    G, h0, Hp = t(sc.qp.G), t(sc.qp.h0), t(sc.qp.Hp)
+    z, dx, win = _inputs(B, sc.nz, cuda, seed=seed)
+    _, H, g = gn(z, dx, win)
+    return gn, G, h0, Hp, H, g, step_rhs(h0, Hp, G, dx, z), (z, dx, win)
+
+
+def _place(a, src: int, at):
+    """a copy of a with lane src's entry copied to the lanes `at`."""
+    a = a.clone()
+    a[list(at)] = a[src].clone()
+    return a
+
+
+def _window_at(win, src: int, at):
+    return DataWindow(*(_place(v, src, at) for v in (win.X, win.Y, win.valid, win.count)))
+
+
+@pytest.mark.parametrize("B", [1, 24, 300, 2048])
+def test_narrow_kernels_give_a_lane_the_same_bits_anywhere(cuda, bench, B):
+    """K2 (8 cold, 2 warm) and K3 (16, 8) run a lane on one warp, several
+    lanes a block: one QP placed at every position of a batch of real QPs
+    (lanes 0, 1, 7, 31, 32, B - 1), and the same QP alone at B = 1, give
+    the same x, mu, s and z (K3: e, d, mu, g) bit for bit, whatever B."""
+    gn, G, h0, Hp, H, g, h, (z, dx, win) = _bench_qp(cuda, bench, 2048, seed=31)
+    src = 5
+    at = sorted({0, 1, 7, 31, 32, B - 1} & set(range(B)))
+    Hb, gb, hb = (_place(a[:B], src, at) if B > 1 else a[src:src + 1].contiguous()
+                  for a in (H, g, h))
+    x, mu, st = mehrotra_h(G, Hb, gb, hb, 8, want_state=True)
+    xw, muw, stw = mehrotra_h(G, Hb, gb, hb, 2, warm=st, want_state=True)
+    x1, mu1, st1 = mehrotra_h(G, H[src:src + 1].contiguous(), g[src:src + 1].contiguous(),
+                              h[src:src + 1].contiguous(), 8, want_state=True)
+    xw1, muw1, _ = mehrotra_h(G, H[src:src + 1].contiguous(), g[src:src + 1].contiguous(),
+                              h[src:src + 1].contiguous(), 2, warm=st1)
+    for a, a1 in ((x, x1), (mu, mu1), (st[0], st1[0]), (st[1], st1[1]), (xw, xw1),
+                  (muw, muw1)):
+        assert torch.equal(a[at], a1.expand_as(a[at]))
+    if B > 1:
+        zi, dxi, wini = _place(z[:B], src, at), _place(dx[:B], src, at), _window_at(
+            win.index(torch.arange(B, device=cuda)), src, at)
+    else:
+        zi, dxi = z[src:src + 1].contiguous(), dx[src:src + 1].contiguous()
+        wini = win.index(torch.tensor([src], device=cuda))
+    one = win.index(torch.tensor([src], device=cuda))
+    for it in (16, 8):
+        mono = MonoPhase(gn, G, h0, Hp, it)
+        outs = mono(zi, dxi, wini)
+        outs1 = mono(z[src:src + 1].contiguous(), dx[src:src + 1].contiguous(), one)
+        for a, a1 in zip(outs, outs1):
+            assert torch.equal(a[at], a1.expand_as(a[at]))
+
+
+def test_narrow_kernels_keep_a_nan_lane(cuda, bench):
+    """A lane whose g or h holds a NaN ends with NaN in x and mu (K2), and a
+    lane whose dx0 holds one with NaN in d and mu (K3); the other lanes,
+    its block neighbours among them (1056 lanes: 8 a block), are bit for
+    bit what they are without it."""
+    B = 1056
+    gn, G, h0, Hp, H, g, h, (z, dx, win) = _bench_qp(cuda, bench, B, seed=32)
+    x0, mu0, st0 = mehrotra_h(G, H, g, h, 8, want_state=True)
+    g1, h1 = g.clone(), h.clone()
+    g1[3, 0] = float("nan")
+    h1[9, 100] = float("nan")
+    x1, mu1, st1 = mehrotra_h(G, H, g1, h1, 8, want_state=True)
+    for lane in (3, 9):
+        assert bool(torch.isnan(mu1[lane])) and bool(torch.isnan(x1[lane]).any())
+    keep = [i for i in range(B) if i not in (3, 9)]
+    for a, b in ((x1, x0), (mu1, mu0), (st1[0], st0[0]), (st1[1], st0[1])):
+        assert torch.equal(a[keep], b[keep])
+    mono = MonoPhase(gn, G, h0, Hp, 16)
+    e0, d0, m0, gg0 = mono(z, dx, win)
+    dx1 = dx.clone()
+    dx1[5, 1] = float("nan")
+    e1, d1, m1, gg1 = mono(z, dx1, win)
+    assert bool(torch.isnan(m1[5])) and bool(torch.isnan(d1[5]).any())
+    keep = [i for i in range(B) if i != 5]
+    for a, b in ((e1, e0), (d1, d0), (m1, m0), (gg1, gg0)):
+        assert torch.equal(a[keep], b[keep])
+
+
+def _random_qp(cuda, mI, nz, B, seed):
+    """A strictly feasible random QP batch: G (mI, nz) standard normal over
+    sqrt(nz), h in [1, 2] (x = 0 inside), H_b = diag in [1, 2] + a small
+    rank-one term, g normal with deviation 0.7 (a few constraints active at
+    the optimum of each lane at mI 214 and above)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda).contiguous()
+    u = rng.standard_normal((B, nz, 1)) / np.sqrt(nz)
+    H = np.eye(nz)[None] * rng.uniform(1.0, 2.0, (B, nz, 1)) + 0.1 * u @ u.transpose(0, 2, 1)
+    return (t(rng.standard_normal((mI, nz)) / np.sqrt(nz)), t(H),
+            t(0.7 * rng.standard_normal((B, nz))), t(rng.uniform(1.0, 2.0, (B, mI))))
+
+
+@pytest.mark.parametrize("mI, nz", [(1, 1), (214, 1), (1, 2), (214, 2), (1, 32), (214, 32),
+                                    (806, 21), (806, 32), (1024, 1), (1024, 32)])
+def test_narrow_kernel_at_the_domain_edges(cuda, mI, nz):
+    """K2 at the edges of its domain (nz 1, 2, 32: padded widths 8 and 32;
+    mI 1, 806, 1024: the row state in registers and in shared memory)
+    against its plain version on random strictly feasible QPs, with
+    phase 3's gates at 8 cold iterations: the K2 class (|dx| median < 1e-6,
+    max < 5e-2, |dmu| < 1e-3) on every lane that did not stall (mu >= 1e-6)
+    on either side, and the stalled shares within 2 pp; cold_state
+    reproduces the cold start. (Past convergence, at 16 iterations, these
+    QPs' float32 mu drifts back above 1e-6 on a few lanes of either
+    computation at random; 96 lanes cannot hold that share to 2 pp.)"""
+    G, H, g, h = _random_qp(cuda, mI, nz, 96, seed=mI * 100 + nz)
+    x, mu, st = mehrotra_h(G, H, g, h, 8, want_state=True)
+    xp, mup, _ = mehrotra_h_plain(G, H, g, h, 8)
+    for a, b, ma, mb in ((x, xp, mu, mup),):
+        assert bool(a.isfinite().all()) and bool(ma.isfinite().all())
+        dd = (a - b).abs()
+        assert dd.median().item() < 1e-6
+        off = (dd.amax(dim=1) > 5e-2) | ((ma - mb).abs() > 1e-3)
+        assert not bool((off & (ma < 1e-6) & (mb < 1e-6)).any())
+        sk, sp = ((~(m < 1e-6)).float().mean().item() for m in (ma, mb))
+        assert abs(sk - sp) <= 0.02
+    xc, muc, _ = mehrotra_h(G, H, g, h, 8, warm=QPSolverH.cold_state(h))
+    assert torch.equal(xc, x) and torch.equal(muc, mu)
+
+
+def test_narrow_shared_memory_is_the_hosts(cuda):
+    """The block's shared memory that ops/qp_kernel.narrow_launch sizes the
+    launch by is the one K2 and K3 carve (csrc/mehrotra_warp.cuh), over the
+    domain's edges, for every lane count."""
+    import ctypes
+
+    from lbmpc_tpu_torch.ops.qp_kernel import narrow_smem_bytes
+
+    for k, qs in ((qp_kernel.KERNEL, (0,)), (mono_kernel.KERNEL, (1, 100, 500))):
+        k.fn()
+        fn = getattr(ctypes.CDLL(str(k.library_path())), f"{k.source.stem}_smem_bytes")
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_longlong
+        for mI in (1, 7, 214, 256, 257, 806, 1024):
+            for nz in (1, 2, 8, 9, 21, 24, 25, 32):
+                for q in qs:
+                    for warps in range(1, 9):
+                        assert fn(mI, nz, q, warps) == narrow_smem_bytes(mI, nz, warps, q)
