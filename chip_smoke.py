@@ -112,6 +112,35 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """The device time of one call of fn: `reps` calls captured in a CUDA
+    graph, the graph replayed between two CUDA events. cuda_ms times the
+    host's enqueue as well, which for a kernel of tens of microseconds is
+    most of what it reads."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
 def gn_work(B: int, N_: int, q: int, ne: int, nz: int, n_const: int):
     """(bytes, float32 operations) the GN phase must move and do: inputs
     read once, outputs written once; per window point and stage 50
@@ -297,6 +326,9 @@ def run_phases(dev, card: str, kind: str, args) -> int:
                 log(f"  {name}: {line.strip()}")
     ptxas = {k.name: narrow_split_tool().ptxas_summary(logs.get(k.library_path().name, ""))
              for k in (qp_kernel.KERNEL, mono_kernel.KERNEL)}
+    for k in (gn_kernel.KERNEL_WIDE, *chol_kernel.KERNELS):
+        kernels[k.name]["ptxas"] = compare_tool().ptxas_summary(
+            logs.get(k.library_path().name, ""))
     log(f"  built {len(logs)} kernel sources in parallel in {time.time() - t0:.1f} s")
     require(all(k.library_path().exists() for k in all_kernels), "kernels built")
     if args.stop_after < 2:
@@ -836,11 +868,12 @@ def xla_phases(dev, tag: str, args, kernels: dict, cfg, sc, dx, win, dx_init) ->
         libs = {"chol_factor_solve": lib_fs, "chol_solve": lib_fs,
                 "chol_resolve": lambda: torch.cholesky_solve(b[..., None], Lx)}
         for name, (fk, fp) in calls.items():
-            ms, pms, lms = cuda_ms(fk), cuda_ms(fp, reps=3), cuda_ms(libs[name], reps=5)
+            ms, pms, lms = graph_ms(fk), cuda_ms(fp, reps=3), cuda_ms(libs[name], reps=5)
             bd, bd_by = bound_ms(*chol_work(name, B, n))
             t[(name, shape)] = (ms, pms, lms, bd, bd_by)
-            log(f"  time {name} {shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                f"library {lms:.4f} ms, bound {bd:.4f} ms ({bd_by}) {tag}")
+            log(f"  time {name} {shape}: kernel {ms:.4f} ms (device), host-clocked "
+                f"{cuda_ms(fk):.4f} ms, plain {pms:.4f} ms, library {lms:.4f} ms, bound "
+                f"{bd:.4f} ms ({bd_by}) {tag}")
     # each row carries the shape of its kernel's path: K5a and K5c the
     # fleet cohort, K5b the DMS flagship (its LBMPC_CHOL_STORE=0 path)
     for name, shape in (("chol_factor_solve", f"n={sc.nz} B={COHORT}"),
@@ -849,6 +882,11 @@ def xla_phases(dev, tag: str, args, kernels: dict, cfg, sc, dx, win, dx_init) ->
         ms, pms, lms, bd, bd_by = t[(name, shape)]
         kernels[name].update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bd,
                              bound_by=bd_by)
+    chol_report(dev, tag, kernels, [(f"n={sc.nz} B={COHORT}", *cases[f"n={sc.nz} B={COHORT}"][1]),
+                                    (f"n={sc.nz} B={BATCH}", *(a[:BATCH].contiguous() for a in
+                                                               cases[f"n={sc.nz} B={COHORT}"][1])),
+                                    (f"n={ds.nz} B={DMS_BATCH}",
+                                     *cases[f"n={ds.nz} B={DMS_BATCH}"][1])])
     ts = {"xla_solve": cuda_ms(lambda: sk(dx, win, z0), reps=5),
           "xla_solve_plain": cuda_ms(lambda: sp(dx, win, z0), reps=2, warmup=1),
           "dms_solve": cuda_ms(lambda: dk(ddx, dwin, dz0), reps=3, warmup=1),
@@ -1487,8 +1525,9 @@ def wide_phases(dev, tag: str, args, kernels: dict, dx_init) -> None:
     log("phase 23: K1w / K2w / K6 timings and the wide solves and fleet")
     t = {}
     for fam, gn in gns.items():
-        t[f"k1w_{fam}"] = cuda_ms(lambda: gn(*gin[fam]))
+        t[f"k1w_{fam}"] = graph_ms(lambda: gn(*gin[fam]))
         t[f"k1w_{fam}_plain"] = cuda_ms(lambda: gn.plain(*gin[fam]), reps=3)
+    k1w_report(dev, tag, kernels, gns, gin)
     for fam in ("casadi", "fmincon"):
         G, H, g, h = qps[fam]
         pl = plans[fam]
@@ -1652,6 +1691,83 @@ def narrow_k3_report(dev, tag: str, kernels: dict, ptxas: str, gn, G, h0, Hp) ->
                      [("k3", it, None) for it in XLA_SCHED],
                      lambda c: log(f"  split K3 B={c['B']} {c['iters']} iters (loop): "
                                    f"{split_tool().format_split(c)} {tag}"))
+
+
+def compare_tool():
+    """tools/k1w_k5_compare.py: ptxas summaries and K1w's and K5's shared
+    memory and lanes an SM as the kernels compute them."""
+    split_tool()
+    import k1w_k5_compare
+
+    return k1w_k5_compare
+
+
+def chol_report(dev, tag: str, kernels: dict, runs) -> None:
+    """Phase 11's K5 report: K5a's, K5b's and K5c's device time on each
+    (label, M, b) of `runs` (the last IPM iteration's systems: the fleet's
+    n=21 at the cohort and at batch 2048, the DMS flagship's n=101), with
+    the lanes a block the host picks, the lanes an SM the kernel holds, and
+    the kernel's shared memory held to the host's."""
+    from lbmpc_tpu_torch.ops import chol_kernel as ck
+    from lbmpc_tpu_torch.ops.qp_kernel import sm_count
+
+    tool = compare_tool()
+    rows = {k.name: {"ms_by_batch": {}, "lanes_a_block": {}, "lanes_an_sm": {}}
+            for k in ck.KERNELS}
+    for label, M, b in runs:
+        B, n = b.shape
+        L = ck.chol_factor_solve(M, b)[0]
+        calls = {"chol_factor_solve": lambda: ck.chol_factor_solve(M, b),
+                 "chol_solve": lambda: ck.chol_solve(M, b),
+                 "chol_resolve": lambda: ck.chol_resolve(L, b)}
+        lanes, blocks, smem = ck.chol_launch(n, B, sms=sm_count(dev))
+        for kind, (name, fn) in enumerate(calls.items()):
+            c_smem, resident = tool.k5_shape(ck.FACTOR_SOLVE, kind, n, lanes)
+            require(c_smem == smem, f"{name}'s shared memory at {label} is the host's "
+                    f"chol_smem_bytes ({smem} B)")
+            ms = graph_ms(fn)
+            rows[name]["ms_by_batch"][label] = ms
+            rows[name]["lanes_a_block"][label] = lanes
+            rows[name]["lanes_an_sm"][label] = resident
+            log(f"  time {name} {label}: {ms:.4f} ms (device); {lanes} lanes a block, "
+                f"{blocks} blocks, {smem} B shared, {resident} lanes an SM {tag}")
+    for name, row in rows.items():
+        kernels[name].update(row)
+
+
+def k1w_report(dev, tag: str, kernels: dict, gns: dict, gin: dict) -> None:
+    """Phase 23's K1w report: its device time at the N40 shape at the
+    cohort, batch 2048 and the repair's K, and at the DMS flagship's batch,
+    with the lanes a block the host picks, the lanes an SM the kernel holds,
+    and the kernel's shared memory held to the host's."""
+    import torch
+
+    from lbmpc_tpu_torch.ops import gn_kernel
+    from lbmpc_tpu_torch.ops.gn_kernel import wide_launch
+    from lbmpc_tpu_torch.ops.qp_kernel import sm_count
+
+    tool = compare_tool()
+    row = {"ms_by_batch": {}, "lanes_a_block": {}, "lanes_an_sm": {}}
+    for fam, batches in (("fmincon", (COHORT, BATCH, REPAIR_K)), ("casadi", (DMS_BATCH,))):
+        gn = gns[fam]
+        z, dx, win = gin[fam]
+        q = win.X.shape[-2]
+        for B in batches:
+            idx = torch.arange(B, device=dev)
+            ins = (z[:B].contiguous(), dx[:B].contiguous(), win.index(idx))
+            lanes, blocks, smem = wide_launch(gn.nz, q, B, sms=sm_count(dev))
+            c_smem, resident = tool.k1w_shape(gn_kernel.KERNEL_WIDE, gn.nz, q, lanes,
+                                              fam == "casadi")
+            require(c_smem == smem, f"K1w's shared memory at nz={gn.nz} B={B} is the host's "
+                    f"wide_smem_bytes ({smem} B)")
+            label = f"nz={gn.nz} B={B}"
+            ms = graph_ms(lambda: gn(*ins))
+            row["ms_by_batch"][label] = ms
+            row["lanes_a_block"][label] = lanes
+            row["lanes_an_sm"][label] = resident
+            log(f"  time k1w {fam} {label}: {ms:.4f} ms (device); {lanes} lanes a block, "
+                f"{blocks} blocks, {smem} B shared, {resident} lanes an SM {tag}")
+    kernels["gn_wide"].update(row)
 
 
 def split_tool():
@@ -2134,7 +2250,7 @@ def finish(card: str, kind: str, kernels: dict, args) -> int:
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
         extra = ("max_abs_err_held", "nan_lanes", "far_from_float64", "ms_8_iters",
                  "plain_ms_8_iters", "bound_ms_8_iters", "bound_ms_dense", "ms_2_iters",
-                 "ms_by_batch", "ptxas")
+                 "ms_by_batch", "lanes_a_block", "lanes_an_sm", "ptxas")
         rows = [{**{k: v.get(k) for k in keys}, **{k: v[k] for k in extra if k in v}}
                 for v in kernels.values()]
         require(all(r[k] is not None for r in rows for k in keys if k != "library_ms"),

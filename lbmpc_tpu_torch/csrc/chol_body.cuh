@@ -1,27 +1,33 @@
 // chol_body.cuh — block-wide Cholesky factorizations and solves of one
-// lane's SPD matrix in shared memory, shared by chol.cu (K5), chol_blocked.cu
-// (K6) and mehrotra_wide.cuh (K2w).
+// lane's SPD matrix in shared memory, shared by chol.cu (K5 above n = 32),
+// chol_blocked.cu (K6) and mehrotra_wide.cuh (K2w, K3w).
 //
 // The factorization is the TPU kernel's column recurrence (pallas_chol.py
 // _chol_cols): column j is acc = M[:, j] - sum_{k<j} L[j, k] L[:, k] with the
 // terms taken in the order k = 0, 1, ..., j-1, L[j, j] = acc_j /
 // sqrt(max(acc_j, 1e-30)) and L[i, j] = acc_i / sqrt(max(acc_j, 1e-30)) below
-// it — the pivot floor included. Both forms here run it in place on the lower
-// triangle of A (n x n, row-major) and give each entry the same terms in the
-// same order, with every product, difference, quotient and square root
-// rounded on its own (__fmul_rn, __fsub_rn, __fdiv_rn, __fsqrt_rn: no fused
-// multiply-add), so they agree with each other and with the plain version
-// ops/chol_kernel.cholesky_floor bit for bit:
-//   factor_cols (K5): right-looking by columns; after column j is final,
-//     every entry (i, k) of the trailing lower triangle subtracts
-//     L[i, j] L[k, j]; two block barriers a column;
+// it — the pivot floor included. Every form here runs it in place on the
+// lower triangle of A (n x n, row-major) and gives each entry the same terms
+// in the same order, with every product, difference, quotient and square
+// root rounded on its own (__fmul_rn, __fsub_rn, __fdiv_rn, __fsqrt_rn: no
+// fused multiply-add), so they agree with each other, with chol.cu's warp
+// form (n <= 32) and with the plain version ops/chol_kernel.cholesky_floor
+// bit for bit:
+//   factor_cols: right-looking by columns; after column j is final, every
+//     entry (i, k) of the trailing lower triangle subtracts L[i, j] L[k, j];
+//     two block barriers a column (lane's kBlocked = false);
 //   factor_blocked (K6, pallas_chol.py _chol_blocked_inplace): slabs of
 //     kSlab = 8 columns. Warp 0 factors the slab's panel (its 8 columns, all
 //     rows below the slab's first), subtracting within the panel column by
 //     column; then the block updates the trailing matrix once, each entry
-//     subtracting the slab's 8 terms in k order. Two block barriers a slab.
-// The solve is the TPU kernel's column sweep (_tri_lower) forward, then the
-// same sweep on L' (row j of L) back; one block barrier a column.
+//     subtracting the slab's 8 terms in k order. Two block barriers a slab;
+//   factor_panel (K2w, K5 above n = 32): panels of kPanel = 8 columns, a row
+//     of the panel a thread in registers, two barriers a column; then the
+//     trailing update once a panel, a warp a row, from registers.
+// The solves are the TPU kernel's column sweep (_tri_lower) forward, then
+// the same sweep on L' (row j of L) back: `solve` one block barrier a
+// column (K6), `solve_blocked` blocks of kSolveBlock columns, two barriers
+// a block (K2w, K5 above n = 32).
 
 #pragma once
 
@@ -31,7 +37,12 @@ namespace chol {
 
 constexpr int kNMax = 128;
 constexpr int kSlab = 8;
+constexpr int kPanel = 8;            // factor_panel's columns a panel
+constexpr int kSolveBlock = 32;      // solve_blocked's columns a block
+constexpr int kBlockThreads = 256;   // the block factor_panel and solve_blocked run on
+constexpr int kBlockWarps = kBlockThreads / 32;
 constexpr float kPivotFloor = 1e-30f;
+constexpr unsigned kFull = 0xffffffffu;
 
 // a - x y, the product and the difference each rounded on its own
 __device__ __forceinline__ float sub_prod(float a, float x, float y) {
@@ -126,7 +137,143 @@ __device__ __forceinline__ void solve(const float* A, float* v, float* y, int n)
   }
 }
 
-// One lane of K5/K6: stage M (or L) and b, factor (kFactor; blocked or by
+// K2w's and K5's (n > 32) factorization, on a block of kBlockThreads: A's
+// lower triangle (n x n, row-major) in place, with the pivot floor: L[i][j] =
+// acc_i / sqrt(max(acc_j, 1e-30)) (NaN passes), K6's factor_blocked term for
+// term (its 8-column slabs are these panels). Thread t holds panel row j0 + t
+// in registers; for column j the pivot and the panel rows' L[k][j] go
+// through `panel` (2 kPanel floats of shared memory); then the trailing
+// lower triangle subtracts the panel's terms in column order, a warp a row.
+// Entry synchronised; exit too.
+__device__ __forceinline__ void factor_panel(float* A, float* panel, int n) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int j0 = 0; j0 < n; j0 += kPanel) {
+    const int w = min(kPanel, n - j0);
+    const int i = j0 + tid;  // n - j0 <= 128 < kBlockThreads: one row a thread
+    const bool own = i < n;
+    float a[kPanel];
+#pragma unroll
+    for (int jj = 0; jj < kPanel; ++jj)
+      a[jj] = (own && jj < w && jj <= tid) ? A[i * n + j0 + jj] : 0.f;
+    if (tid == 0) panel[0] = a[0];
+    __syncthreads();
+#pragma unroll
+    for (int jj = 0; jj < kPanel; ++jj) {
+      if (jj < w) {
+        // L[i][j] = acc_i / sqrt(max(acc_j, 1e-30)) for i >= j, the diagonal
+        // included (the reference's pivot floor, pallas_chol.py _chol_cols);
+        // the panel's rows publish theirs for the update
+        // rows above the panel's column and past n divide 1, not their zero:
+        // a zero operand sends __fdiv_rn down its slow path, and every warp
+        // waits for the slowest at the barrier (their quotients go unread)
+        const float lij =
+            __fdiv_rn((own && jj <= tid) ? a[jj] : 1.f, pivot(panel[jj]));
+        if (tid < w) panel[kPanel + tid] = lij;
+        __syncthreads();
+#pragma unroll
+        for (int kk = jj + 1; kk < kPanel; ++kk)
+          if (kk < w && kk <= tid) a[kk] = sub_prod(a[kk], lij, panel[kPanel + kk]);
+        a[jj] = lij;
+        if (jj + 1 < w && tid == jj + 1) panel[jj + 1] = a[jj + 1];  // the next pivot
+        __syncthreads();
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kPanel; ++jj)
+      if (own && jj < w && jj <= tid) A[i * n + j0 + jj] = a[jj];
+    __syncthreads();
+    // the trailing lower triangle: rows i >= j1, columns j1..i; lane l keeps
+    // L[k][j0..j1) of its columns k = j1 + l + 32 q
+    const int j1 = j0 + w;
+    if (j1 < n) {
+      float lk[4][kPanel];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = j1 + lane + 32 * q;
+#pragma unroll
+        for (int jj = 0; jj < kPanel; ++jj)
+          lk[q][jj] = (k < n && jj < w) ? A[k * n + j0 + jj] : 0.f;
+      }
+      for (int r = j1 + warp; r < n; r += kBlockWarps) {
+        float li[kPanel];
+#pragma unroll
+        for (int jj = 0; jj < kPanel; ++jj) li[jj] = jj < w ? A[r * n + j0 + jj] : 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k = j1 + lane + 32 * q;
+          if (k <= r) {
+            float v = A[r * n + k];
+#pragma unroll
+            for (int jj = 0; jj < kPanel; ++jj) v = sub_prod(v, li[jj], lk[q][jj]);
+            A[r * n + k] = v;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// K2w's and K5's (n > 32) solves, on a block of kBlockThreads: L L' x = b
+// with L the lower triangle of A; v holds b on entry and x on exit. Forward
+// by blocks of kSolveBlock columns from the first, back by blocks from the
+// last: warp 0 solves the diagonal block (lane l holds row l
+// of it, each solved entry broadcast by a shuffle), then every thread
+// subtracts the block from one row outside it — two block barriers a block,
+// not one a column. Each entry gets the terms of solve's column sweep, in
+// its order (back: the later columns first) and rounded as it rounds
+// them (a quotient by L[j][j], then each product and difference on its
+// own), so for the same L the two agree bit for bit: in float32 the share
+// of N40 lanes whose Mehrotra iteration stalls depends on that order (33 %
+// with the back sweep's columns taken in ascending order, 43 % in the
+// sweep's, 42 % for the plain version; PERF.md). Entry synchronised; exit
+// too.
+__device__ __forceinline__ void solve_blocked(const float* A, float* v, int n) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int c0 = 0; c0 < n; c0 += kSolveBlock) {  // L y = b
+    const int nb = min(kSolveBlock, n - c0);
+    if (warp == 0) {
+      const int i = c0 + lane;
+      float b = lane < nb ? v[i] : 0.f, y = 0.f;
+      for (int j = 0; j < nb; ++j) {
+        const float yj = __fdiv_rn(__shfl_sync(kFull, b, j), A[(c0 + j) * n + c0 + j]);
+        if (lane == j) y = yj;
+        if (lane > j && lane < nb) b = sub_prod(b, A[i * n + c0 + j], yj);
+      }
+      if (lane < nb) v[i] = y;
+    }
+    __syncthreads();
+    for (int i = c0 + nb + tid; i < n; i += kBlockThreads) {
+      const float* row = A + i * n + c0;
+      float b = v[i];
+      for (int j = 0; j < nb; ++j) b = sub_prod(b, row[j], v[c0 + j]);
+      v[i] = b;
+    }
+    __syncthreads();
+  }
+  for (int c1 = n; c1 > 0; c1 -= kSolveBlock) {  // L' x = y
+    const int c0 = max(0, c1 - kSolveBlock), nb = c1 - c0;
+    if (warp == 0) {
+      const int i = c0 + lane;
+      float b = lane < nb ? v[i] : 0.f, x = 0.f;
+      for (int j = nb - 1; j >= 0; --j) {
+        const float xj = __fdiv_rn(__shfl_sync(kFull, b, j), A[(c0 + j) * n + c0 + j]);
+        if (lane == j) x = xj;
+        if (lane < j) b = sub_prod(b, A[(c0 + j) * n + i], xj);
+      }
+      if (lane < nb) v[i] = x;
+    }
+    __syncthreads();
+    for (int i = tid; i < c0; i += kBlockThreads) {
+      float b = v[i];
+      for (int j = nb - 1; j >= 0; --j) b = sub_prod(b, A[(c0 + j) * n + i], v[c0 + j]);
+      v[i] = b;
+    }
+    __syncthreads();
+  }
+}
+
+// One lane of K6: stage M (or L) and b, factor (kFactor; blocked or by
 // columns), store L (kStore) with zeros above the diagonal, solve, write x.
 // Shared memory: n*n + 3n floats.
 template <bool kFactor, bool kStore, bool kBlocked>

@@ -50,8 +50,8 @@
 // blocks of 32 columns: warp 0 solves the diagonal block with shuffles, the
 // block subtracts it from the rest as one matrix-vector product — two
 // barriers a block instead of one a column — with chol::solve's terms,
-// order and rounding. chol_body.cuh's functions (K5's, K6's) stay as they
-// are; its pivot floor and rounded multiply-subtract are used here.
+// order and rounding. Both are chol_body.cuh's factor_panel and
+// solve_blocked, which K5 runs above n = 32 too.
 // One thread per constraint row keeps that row's s, z, d, rp and the
 // predictor/corrector terms in registers (mehrotra_body.cuh's kRowsPerThread
 // rows); step lengths and mu are K2's block reductions.
@@ -83,8 +83,8 @@ constexpr int kNzMax = 128;
 constexpr int kTile = 16;                       // 16 x 16 threads; column tiles (WidePlan.TILE)
 constexpr int kGroupRows = 32;                  // rows summed in registers before the total
 constexpr int kParts = 8;                       // row partitions of G'v
-constexpr int kPanel = 8;                       // columns a factorization panel
-constexpr int kSolveBlock = 32;                 // columns a block of the triangular solves
+constexpr int kPanel = chol::kPanel;            // columns a factorization panel
+static_assert(kThreads == chol::kBlockThreads, "chol::factor_panel runs on K2w's block");
 
 // Phase clocks, for tools/k2w_split.py only: built with K2W_PHASE_CLOCKS,
 // thread 0 of each block adds the clock64() cycles of every phase of every
@@ -436,137 +436,6 @@ __device__ __forceinline__ void equilibrate(const Shared& sh, int nz) {
   __syncthreads();
 }
 
-// Cholesky of A's lower triangle (n x n, row-major) in place, with the pivot
-// floor: L[i][j] = acc_i / sqrt(max(acc_j, 1e-30)) (NaN passes), K6's
-// factor_blocked term for term (its 8-column slabs are these panels). Thread
-// t holds panel row j0 + t in registers; for column j the pivot and the
-// panel rows' L[k][j] go through sh.panel; then the trailing lower triangle
-// subtracts the panel's terms in column order, a warp a row. Entry
-// synchronised; exit too.
-__device__ __forceinline__ void factor(const Shared& sh, int n) {
-  float* A = sh.A;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int j0 = 0; j0 < n; j0 += kPanel) {
-    const int w = min(kPanel, n - j0);
-    const int i = j0 + tid;  // n - j0 <= 128 < kThreads: one row a thread
-    const bool own = i < n;
-    float a[kPanel];
-#pragma unroll
-    for (int jj = 0; jj < kPanel; ++jj)
-      a[jj] = (own && jj < w && jj <= tid) ? A[i * n + j0 + jj] : 0.f;
-    if (tid == 0) sh.panel[0] = a[0];
-    __syncthreads();
-#pragma unroll
-    for (int jj = 0; jj < kPanel; ++jj) {
-      if (jj < w) {
-        // L[i][j] = acc_i / sqrt(max(acc_j, 1e-30)) for i >= j, the diagonal
-        // included (the reference's pivot floor, pallas_chol.py _chol_cols);
-        // the panel's rows publish theirs for the update
-        const float lij = __fdiv_rn(a[jj], chol::pivot(sh.panel[jj]));
-        if (tid < w) sh.panel[kPanel + tid] = lij;
-        __syncthreads();
-#pragma unroll
-        for (int kk = jj + 1; kk < kPanel; ++kk)
-          if (kk < w && kk <= tid) a[kk] = chol::sub_prod(a[kk], lij, sh.panel[kPanel + kk]);
-        a[jj] = lij;
-        if (jj + 1 < w && tid == jj + 1) sh.panel[jj + 1] = a[jj + 1];  // the next pivot
-        __syncthreads();
-      }
-    }
-#pragma unroll
-    for (int jj = 0; jj < kPanel; ++jj)
-      if (own && jj < w && jj <= tid) A[i * n + j0 + jj] = a[jj];
-    __syncthreads();
-    // the trailing lower triangle: rows i >= j1, columns j1..i; lane l keeps
-    // L[k][j0..j1) of its columns k = j1 + l + 32 q
-    const int j1 = j0 + w;
-    if (j1 < n) {
-      float lk[4][kPanel];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = j1 + lane + 32 * q;
-#pragma unroll
-        for (int jj = 0; jj < kPanel; ++jj)
-          lk[q][jj] = (k < n && jj < w) ? A[k * n + j0 + jj] : 0.f;
-      }
-      for (int r = j1 + warp; r < n; r += kWarps) {
-        float li[kPanel];
-#pragma unroll
-        for (int jj = 0; jj < kPanel; ++jj) li[jj] = jj < w ? A[r * n + j0 + jj] : 0.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int k = j1 + lane + 32 * q;
-          if (k <= r) {
-            float v = A[r * n + k];
-#pragma unroll
-            for (int jj = 0; jj < kPanel; ++jj) v = chol::sub_prod(v, li[jj], lk[q][jj]);
-            A[r * n + k] = v;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// L L' x = b with L the lower triangle of A: v holds b on entry and x on
-// exit. Forward by blocks of kSolveBlock columns from the first, back by
-// blocks from the last: warp 0 solves the diagonal block (lane l holds row l
-// of it, each solved entry broadcast by a shuffle), then every thread
-// subtracts the block from one row outside it — two block barriers a block,
-// not one a column. Each entry gets the terms of chol::solve's column sweep,
-// in its order (back: the later columns first) and rounded as it rounds
-// them (a quotient by L[j][j], then each product and difference on its
-// own), so for the same L the two agree bit for bit: in float32 the share
-// of N40 lanes whose Mehrotra iteration stalls depends on that order (33 %
-// with the back sweep's columns taken in ascending order, 43 % in the
-// sweep's, 42 % for the plain version; PERF.md). Entry synchronised; exit
-// too.
-__device__ __forceinline__ void tri_solve(const float* A, float* v, int n) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int c0 = 0; c0 < n; c0 += kSolveBlock) {  // L y = b
-    const int nb = min(kSolveBlock, n - c0);
-    if (warp == 0) {
-      const int i = c0 + lane;
-      float b = lane < nb ? v[i] : 0.f, y = 0.f;
-      for (int j = 0; j < nb; ++j) {
-        const float yj = __fdiv_rn(__shfl_sync(kFull, b, j), A[(c0 + j) * n + c0 + j]);
-        if (lane == j) y = yj;
-        if (lane > j && lane < nb) b = chol::sub_prod(b, A[i * n + c0 + j], yj);
-      }
-      if (lane < nb) v[i] = y;
-    }
-    __syncthreads();
-    for (int i = c0 + nb + tid; i < n; i += kThreads) {
-      const float* row = A + i * n + c0;
-      float b = v[i];
-      for (int j = 0; j < nb; ++j) b = chol::sub_prod(b, row[j], v[c0 + j]);
-      v[i] = b;
-    }
-    __syncthreads();
-  }
-  for (int c1 = n; c1 > 0; c1 -= kSolveBlock) {  // L' x = y
-    const int c0 = max(0, c1 - kSolveBlock), nb = c1 - c0;
-    if (warp == 0) {
-      const int i = c0 + lane;
-      float b = lane < nb ? v[i] : 0.f, x = 0.f;
-      for (int j = nb - 1; j >= 0; --j) {
-        const float xj = __fdiv_rn(__shfl_sync(kFull, b, j), A[(c0 + j) * n + c0 + j]);
-        if (lane == j) x = xj;
-        if (lane < j) b = chol::sub_prod(b, A[(c0 + j) * n + i], xj);
-      }
-      if (lane < nb) v[i] = x;
-    }
-    __syncthreads();
-    for (int i = tid; i < c0; i += kThreads) {
-      float b = v[i];
-      for (int j = nb - 1; j >= 0; --j) b = chol::sub_prod(b, A[(c0 + j) * n + i], v[c0 + j]);
-      v[i] = b;
-    }
-    __syncthreads();
-  }
-}
-
 // One KKT solve for the complementarity right-hand side rc:
 // dx = sc * L^-T L^-1 (-(rd + G' t) * sc), t = d rp - rc / s_safe, then
 // dz = d (rp + G dx) - rc / s_safe and ds = -rp - G dx per row (K2's kkt).
@@ -589,7 +458,7 @@ __device__ __forceinline__ void kkt(const Shared& sh, const Plan& P, int mI, int
   if (tid < nz) sh.v[tid] = -(sh.rd[tid] + sh.gt[tid]) * sh.sc[tid];
   __syncthreads();
   clk.mark(kClkGtv);
-  tri_solve(sh.A, sh.v, nz);
+  chol::solve_blocked(sh.A, sh.v, nz);
   if (tid < nz) sh.dx[tid] = sh.v[tid] * sh.sc[tid];
   __syncthreads();
   clk.mark(kClkSweep);
@@ -649,7 +518,7 @@ __device__ __forceinline__ void solve(const Shared& sh, const Plan& P, int mI, i
     clk.mark(kClkAssemble);
     equilibrate(sh, nz);
     clk.mark(kClkEquil);
-    factor(sh, nz);
+    chol::factor_panel(sh.A, sh.panel, nz);
     clk.mark(kClkFactor);
 
     // predictor

@@ -18,6 +18,10 @@ lane tiles and have no counterpart. Neither has its scoped-VMEM model
 (_chol_vmem_need, _tile_cap, _vlim_raise): a lane's n^2 floats (40.8 KB at
 the DMS flagship's n=101) fit one block's shared memory on this card up to
 n = 128, so storing L always fits and only LBMPC_CHOL_STORE=0 turns it off.
+
+K5 runs one warp a lane and several lanes a block up to n = 32, one
+256-thread block a lane above (csrc/chol.cu); `chol_launch` is the host's
+choice of that shape, which the wrappers pass to the kernel.
 """
 
 from __future__ import annotations
@@ -27,17 +31,47 @@ import os
 import torch
 
 from lbmpc_tpu_torch.ops._cuda import I, P, CudaKernel, check, ptr
+from lbmpc_tpu_torch.ops.qp_kernel import H100_SMS, sm_count
 
-FACTOR_SOLVE = CudaKernel("chol_factor_solve", [P] * 4 + [I, I, P], source="chol")
-SOLVE = CudaKernel("chol_solve", [P] * 3 + [I, I, P], source="chol")
-RESOLVE = CudaKernel("chol_resolve", [P] * 3 + [I, I, P], source="chol")
+FACTOR_SOLVE = CudaKernel("chol_factor_solve", [P] * 4 + [I, I, I, P], source="chol")
+SOLVE = CudaKernel("chol_solve", [P] * 3 + [I, I, I, P], source="chol")
+RESOLVE = CudaKernel("chol_resolve", [P] * 3 + [I, I, I, P], source="chol")
 KERNELS = (FACTOR_SOLVE, SOLVE, RESOLVE)
 FACTOR_SOLVE_BLOCKED = CudaKernel("chol_factor_solve_blocked", [P] * 4 + [I, I, P],
                                   source="chol_blocked")
 SOLVE_BLOCKED = CudaKernel("chol_solve_blocked", [P] * 3 + [I, I, P], source="chol_blocked")
 BLOCKED_KERNELS = (FACTOR_SOLVE_BLOCKED, SOLVE_BLOCKED)
-N_MAX = 128          # csrc/chol.cu kNMax
+N_MAX = 128          # csrc/chol_body.cuh kNMax
 PIVOT_FLOOR = 1e-30  # sqrt(max(acc_jj, 1e-30)), pallas_chol.py:417
+# K5's launch shape (csrc/chol.cu): a warp a lane up to WARP_N_MAX, at most
+# MAX_LANES lanes a block; above it a block of BLOCK_THREADS a lane, with the
+# factorization's panel of PANEL columns (csrc/chol_body.cuh)
+WARP_N_MAX, MAX_LANES, BLOCK_THREADS, PANEL = 32, 8, 256, 8
+
+
+def chol_smem_bytes(n: int, lanes: int) -> int:
+    """K5's dynamic shared memory for a block of `lanes` lanes (csrc/chol.cu
+    lane_floats): a lane's copy of L, n rows of stride 8 ceil(n / 8) + 1, up
+    to WARP_N_MAX; above it the n x n matrix, the right-hand side and the
+    panel's 2 PANEL floats."""
+    per = (n * (-(-n // 8) * 8 + 1) if n <= WARP_N_MAX else n * n + n + 2 * PANEL)
+    return 4 * lanes * per
+
+
+def chol_launch(n: int, B: int, sms: int = H100_SMS) -> tuple:
+    """K5's launch shape for B lanes of n x n systems on a card of `sms`
+    SMs: (lanes a block, blocks, the block's shared memory in bytes). Up to
+    WARP_N_MAX a warp runs a lane and a block holds the most lanes, a power
+    of two up to MAX_LANES, that still give every SM a block (up to `sms`
+    lanes each has a block of its own); above it a block runs one lane.
+    Raises where the kernels do not take the shape."""
+    if not (1 <= n <= N_MAX and B >= 0):
+        raise ValueError(f"the chol kernels take 1 <= n <= {N_MAX} and a batch B >= 0 "
+                         f"(got n={n}, B={B})")
+    lanes = MAX_LANES if n <= WARP_N_MAX else 1
+    while lanes > 1 and -(-B // lanes) < sms:
+        lanes //= 2
+    return lanes, -(-B // lanes), chol_smem_bytes(n, lanes)
 
 
 def factor_store_feasible() -> bool:
@@ -127,6 +161,10 @@ def _checked(A, b):
     return Bsz, n
 
 
+def _lanes(dev, Bsz: int, n: int) -> I:
+    return I(chol_launch(n, Bsz, sms=sm_count(dev))[0])
+
+
 def chol_factor_solve(M, b, plain: bool = False):
     """Factor SPD M (B, n, n) and solve M x = b (B, n): (L, x)."""
     dev = _device_of(M, plain)
@@ -135,7 +173,8 @@ def chol_factor_solve(M, b, plain: bool = False):
     Bsz, n = _checked(M, b)
     L = torch.empty_like(M)
     x = torch.empty_like(b)
-    FACTOR_SOLVE.launch(dev, ptr(M), ptr(b), ptr(L), ptr(x), I(Bsz), I(n))
+    FACTOR_SOLVE.launch(dev, ptr(M), ptr(b), ptr(L), ptr(x), I(Bsz), I(n),
+                        _lanes(dev, Bsz, n))
     return L, x
 
 
@@ -146,7 +185,7 @@ def chol_solve(M, b, plain: bool = False):
         return chol_solve_plain(M, b)
     Bsz, n = _checked(M, b)
     x = torch.empty_like(b)
-    SOLVE.launch(dev, ptr(M), ptr(b), ptr(x), I(Bsz), I(n))
+    SOLVE.launch(dev, ptr(M), ptr(b), ptr(x), I(Bsz), I(n), _lanes(dev, Bsz, n))
     return x
 
 
@@ -157,7 +196,7 @@ def chol_resolve(L, b, plain: bool = False):
         return chol_resolve_plain(L, b)
     Bsz, n = _checked(L, b)
     x = torch.empty_like(b)
-    RESOLVE.launch(dev, ptr(L), ptr(b), ptr(x), I(Bsz), I(n))
+    RESOLVE.launch(dev, ptr(L), ptr(b), ptr(x), I(Bsz), I(n), _lanes(dev, Bsz, n))
     return x
 
 

@@ -4,9 +4,10 @@ H = 2J'J + Hconst and g = 2J'e for every lane, in one launch.
 Port of lbmpc_tpu/ops/pallas_gn.py (build_pallas_gn_kernel) over its
 domain, the m=1 model with n=4 states and one theta, in two kernels:
 - K1 (csrc/gn_phase.cu, one warp per lane): the fmincon family at nz <= 32;
-- K1w (csrc/gn_wide.cu, one block per lane): every other shape up to
-  nz = 128, both families — the casadi DMS flagship (nz=101) and the
-  fmincon family above nz 32 (LBMPC_N40 uncut, nz=41).
+- K1w (csrc/gn_wide.cu, one warp per lane, several lanes a block: the
+  shape from `wide_launch`): every other shape up to nz = 128, both
+  families — the casadi DMS flagship (nz=101) and the fmincon family above
+  nz 32 (LBMPC_N40 uncut, nz=41).
 The wrapper routes by device: a CUDA tensor always launches a kernel (K1 or
 K1w by shape, or raises); a CPU tensor takes the plain version, which
 builds J with controllers/lbmpc.make_residual_and_jac and forms the normal
@@ -24,16 +25,56 @@ from lbmpc_tpu_torch.controllers.lbmpc import (make_residual_and_jac,
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.oracle import DataWindow
 from lbmpc_tpu_torch.ops._cuda import WIDE_FLAGS, I, P, CudaKernel, check, ptr
+from lbmpc_tpu_torch.ops.qp_kernel import H100_SMS, SMEM_OPTIN, sm_count
 
 KERNEL = CudaKernel("gn_phase", [P] * 9 + [I, I, I, P])
-KERNEL_WIDE = CudaKernel("gn_wide", [P] * 9 + [I, I, I, I, P], flags=WIDE_FLAGS)
+KERNEL_WIDE = CudaKernel("gn_wide", [P] * 9 + [I, I, I, I, I, P], flags=WIDE_FLAGS)
 NZ_MAX, NZ_MAX_WIDE = 32, 128   # csrc/gn_body.cuh, csrc/gn_wide_body.cuh kNzMax
+WIDE_MAX_LANES = 8              # csrc/gn_wide.cu kMaxLanes
 
 # constant block offsets (csrc/gn_body.cuh and gn_wide_body.cuh enums)
 _C_A, _C_B, _C_KS, _C_LQ, _C_LP, _C_LAM, _C_XSREF = 0, 16, 20, 24, 40, 56, 60
 _C_LR, _C_PSI, _C_SQRTT, _C_INVBW2, _C_RIDGE, _C_SQD, _C_HCONST = (
     64, 65, 66, 67, 68, 69, 72)
 _RIDGE_H = 1e-6
+
+
+def wide_virtual_warps(nz: int) -> int:
+    """The warps of gnw::threads(nz) (csrc/gn_wide_body.cuh: 64 threads up to
+    nz = 64, 128 above), whose order K1w's NW sums keep."""
+    return 2 if nz <= 64 else 4
+
+
+def wide_smem_bytes(nz: int, q: int, lanes: int) -> int:
+    """K1w's dynamic shared memory for a block of `lanes` lanes
+    (csrc/gn_wide.cu lane_floats): the constants once a block, and a lane's
+    Jacobian rows (5 nz), window (8 q) and packed lower triangle of H,
+    rounded up to 4 floats."""
+    lane = -(-(5 * nz + 8 * q + nz * (nz + 1) // 2) // 4) * 4
+    return 4 * (_C_HCONST + lanes * lane)
+
+
+def wide_launch(nz: int, q: int, B: int, sms: int = H100_SMS) -> tuple:
+    """K1w's launch shape for B lanes at nz decision variables and a window
+    of q points on a card of `sms` SMs: (lanes a block, blocks, the block's
+    shared memory in bytes). A warp runs a lane; a block holds the most
+    lanes, a power of two up to WIDE_MAX_LANES, that still give every SM a
+    block (up to `sms` lanes each has a block of its own) and fit the
+    opt-in shared memory. Raises where the kernel does not take the shape or
+    one lane does not fit."""
+    if not (2 <= nz <= NZ_MAX_WIDE and q >= 1 and B >= 0):
+        raise ValueError(f"K1w takes 2 <= nz <= {NZ_MAX_WIDE}, q >= 1 and a batch B >= 0 "
+                         f"(got nz={nz}, q={q}, B={B})")
+    lanes = WIDE_MAX_LANES
+    while lanes > 1 and -(-B // lanes) < sms:
+        lanes //= 2
+    while lanes > 1 and wide_smem_bytes(nz, q, lanes) > SMEM_OPTIN:
+        lanes //= 2
+    smem = wide_smem_bytes(nz, q, lanes)
+    if smem > SMEM_OPTIN:
+        raise ValueError(f"one lane of K1w at nz={nz}, q={q} needs {smem} bytes of shared "
+                         f"memory, more than the {SMEM_OPTIN} a block may use")
+    return lanes, -(-B // lanes), smem
 
 
 class GNPhase:
@@ -142,5 +183,6 @@ class GNPhase:
         if self.narrow:
             KERNEL.launch(dev, *args)
         else:
-            KERNEL_WIDE.launch(dev, *args, I(int(self.family == "casadi")))
+            lanes = wide_launch(self.nz, q, Bsz, sms=sm_count(dev))[0]
+            KERNEL_WIDE.launch(dev, *args, I(int(self.family == "casadi")), I(lanes))
         return e, H, g

@@ -641,3 +641,125 @@ def test_narrow_shared_memory_is_the_hosts(cuda):
                 for q in qs:
                     for warps in range(1, 9):
                         assert fn(mI, nz, q, warps) == narrow_smem_bytes(mI, nz, warps, q)
+
+
+# ---- K1w and K5 on a warp a lane (the launch shape from the host) -----------
+
+def _gn_at(cuda, family: str, nz: int):
+    """GNPhase for LBMPC_N40 / the DMS preset at N = nz - 1, q=100."""
+    cfg = lt.make_preset("LBMPC_N40" if family == "fmincon" else "DMS_LBMPC_q100")
+    cfg = dataclasses.replace(cfg, ocp=dataclasses.replace(cfg.ocp, N=nz - 1))
+    sc = build_scenario(cfg)
+    return GNPhase(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, family=family, delta=cfg.plant.ts,
+                   bandwidth=cfg.oracle.bandwidth, ridge=cfg.oracle.ridge,
+                   dx_ref=np.asarray(cfg.dx_ref), device=cuda)
+
+
+@pytest.mark.parametrize("family", ["fmincon", "casadi"])
+@pytest.mark.parametrize("nz", [33, 41, 64, 65, 101, 128])
+def test_gn_wide_kernel_matches_plain_over_widths(cuda, family, nz):
+    """K1w at every template width (nz 33-64: two columns a lane, 65-96:
+    three, 97-128: four) in both families: e, H, g within phase 19's bound
+    of the plain version (1e-5 max|H|), H exactly symmetric, one launch."""
+    gn = _gn_at(cuda, family, nz)
+    assert gn.wide
+    z, dx, win = _inputs(64, nz, cuda, seed=nz)
+    n0 = gn_kernel.KERNEL_WIDE.launches
+    e, H, g = gn(z, dx, win)
+    assert gn_kernel.KERNEL_WIDE.launches == n0 + 1
+    e_p, H_p, g_p = gn.plain(z, dx, win)
+    torch.cuda.synchronize()
+    hmax = H_p.abs().max().item()
+    for a, b in ((e, e_p), (H, H_p), (g, g_p)):
+        assert bool(a.isfinite().all()) and (a - b).abs().max().item() <= 1e-5 * hmax
+    assert torch.equal(H, H.transpose(1, 2))
+
+
+@pytest.mark.parametrize("family", ["fmincon", "casadi"])
+@pytest.mark.parametrize("B", [1, 24, 300, 2048])
+def test_gn_wide_kernel_gives_a_lane_the_same_bits_anywhere(cuda, wide, family, B):
+    """K1w runs a lane on one warp, 1 to 8 lanes a block: one lane's inputs
+    placed at lanes 0, 1, 31, 32 and B - 1 of a batch of other lanes, and
+    alone at B = 1, give the same e, H and g bit for bit, whatever B."""
+    sc, kw = wide[family]
+    gn = GNPhase(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, device=cuda, **kw)
+    z, dx, win = _inputs(2048, sc.nz, cuda, seed=41)
+    src = 5
+    at = sorted({0, 1, 31, 32, B - 1} & set(range(B)))
+    one = gn(z[src:src + 1].contiguous(), dx[src:src + 1].contiguous(),
+             win.index(torch.tensor([src], device=cuda)))
+    if B > 1:
+        zi, dxi = _place(z[:B], src, at), _place(dx[:B], src, at)
+        wini = _window_at(win.index(torch.arange(B, device=cuda)), src, at)
+        outs = gn(zi, dxi, wini)
+        for a, a1 in zip(outs, one):
+            assert torch.equal(a[at], a1.expand_as(a[at]))
+
+
+def test_gn_wide_kernel_keeps_a_nan_lane(cuda, wide):
+    """A lane whose dx0 holds a NaN ends with NaN in e, H and g; the other
+    lanes, its block neighbours among them (1056 lanes: 8 a block), are
+    bit for bit what they are without it."""
+    sc, kw = wide["fmincon"]
+    gn = GNPhase(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, device=cuda, **kw)
+    B = 1056
+    z, dx, win = _inputs(B, sc.nz, cuda, seed=42)
+    e0, H0, g0 = gn(z, dx, win)
+    dx1 = dx.clone()
+    dx1[5, 1] = float("nan")
+    e1, H1, g1 = gn(z, dx1, win)
+    assert all(bool(torch.isnan(a[5]).any()) for a in (e1, H1, g1))
+    keep = [i for i in range(B) if i != 5]
+    for a, b in ((e1, e0), (H1, H0), (g1, g0)):
+        assert torch.equal(a[keep], b[keep])
+
+
+@pytest.mark.parametrize("B", [1, 24, 8192])
+@pytest.mark.parametrize("n", [1, 8, 9, 21, 32, 33, 64, 101, 128])
+def test_chol_kernels_equal_plain_over_n(cuda, n, B):
+    """K5a, K5b and K5c bit for bit equal to their plain version at the
+    edges of the warp form's widths (n 1, 8, 9, 32), the bench's n = 21,
+    the block form (n 33-128) and the batches of one lane, the repair's 24
+    and the fleet's 8192 (8 lanes a block); L lower with zeros above."""
+    gen = torch.Generator(device=cuda).manual_seed(1000 * n + B)
+    A = torch.randn(B, n, n, device=cuda, generator=gen)
+    M = (A @ A.transpose(1, 2) / n + torch.eye(n, device=cuda)).contiguous()
+    b = torch.randn(B, n, device=cuda, generator=gen)
+    n0 = [k.launches for k in chol_kernel.KERNELS]
+    L, x = chol_kernel.chol_factor_solve(M, b)
+    xs = chol_kernel.chol_solve(M, b)
+    xr = chol_kernel.chol_resolve(L, 2.0 * b)
+    assert [k.launches - c for k, c in zip(chol_kernel.KERNELS, n0)] == [1, 1, 1]
+    Lp, xp = chol_kernel.chol_factor_solve(M, b, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(L, Lp) and torch.equal(x, xp) and torch.equal(xs, xp)
+    assert torch.equal(xr, chol_kernel.chol_resolve(Lp, 2.0 * b, plain=True))
+    assert torch.equal(torch.triu(L, diagonal=1), torch.zeros_like(L))
+
+
+def test_wide_and_chol_shared_memory_is_the_hosts(cuda):
+    """The block's shared memory that gn_kernel.wide_launch and
+    chol_kernel.chol_launch size the launch by is the one K1w and K5 carve,
+    for every lane count they take."""
+    import ctypes
+
+    from lbmpc_tpu_torch.ops.chol_kernel import chol_smem_bytes
+    from lbmpc_tpu_torch.ops.gn_kernel import wide_smem_bytes
+
+    def c_fn(k, name, nargs):
+        k.fn()
+        fn = getattr(ctypes.CDLL(str(k.library_path())), name)
+        fn.argtypes = [ctypes.c_int] * nargs
+        fn.restype = ctypes.c_longlong
+        return fn
+
+    gw = c_fn(gn_kernel.KERNEL_WIDE, "gn_wide_smem_bytes", 3)
+    for nz in (2, 32, 33, 41, 64, 65, 101, 128):
+        for q in (1, 7, 100, 1000):
+            for lanes in range(1, 9):
+                assert gw(nz, q, lanes) == wide_smem_bytes(nz, q, lanes)
+    ch = c_fn(chol_kernel.FACTOR_SOLVE, "chol_smem_bytes", 2)
+    for n in range(1, 129):
+        for lanes in range(1, 9):
+            want = chol_smem_bytes(n, lanes) if (n <= 32 or lanes == 1) else -1
+            assert ch(n, lanes) == want
