@@ -34,7 +34,9 @@ counts set to 0 just before it and read just after:
   per-problem episodes at N=50.
 It times the kernels, their plain versions, the library yardsticks, the
 solves and the fleet steps with CUDA events (K2 and K3 at batch 2048, the
-cohort and the repair's K, with their registers, spills and lanes an SM),
+cohort and the repair's K, with their registers, spills and lanes an SM;
+K1, K1w, K4 and K5 by CUDA graph replay, their device time, K1 and K4 with
+the host-clocked reading beside it and their lanes a block and an SM),
 prints K2's, K3's, K2w's and K3w's time split by phase of a Mehrotra
 iteration (phases 6, 16, 23 and 24, from the phase-clock builds of
 tools/k2_split.py and tools/k2w_split.py), holds K2's lanes to the same bits
@@ -326,7 +328,8 @@ def run_phases(dev, card: str, kind: str, args) -> int:
                 log(f"  {name}: {line.strip()}")
     ptxas = {k.name: narrow_split_tool().ptxas_summary(logs.get(k.library_path().name, ""))
              for k in (qp_kernel.KERNEL, mono_kernel.KERNEL)}
-    for k in (gn_kernel.KERNEL_WIDE, *chol_kernel.KERNELS):
+    for k in (gn_kernel.KERNEL, qp_kernel.KERNEL_SHARED, gn_kernel.KERNEL_WIDE,
+              *chol_kernel.KERNELS):
         kernels[k.name]["ptxas"] = compare_tool().ptxas_summary(
             logs.get(k.library_path().name, ""))
     log(f"  built {len(logs)} kernel sources in parallel in {time.time() - t0:.1f} s")
@@ -499,7 +502,8 @@ def run_phases(dev, card: str, kind: str, args) -> int:
     # ---- phase 6: timings (CUDA events, after warm-up) ------------------------
     log("phase 6: timings")
     t = {}
-    t["k1"] = cuda_ms(lambda: gn(z, dx, win))
+    t["k1"] = graph_ms(lambda: gn(z, dx, win))
+    t["k1_host"] = cuda_ms(lambda: gn(z, dx, win))
     t["k1_plain"] = cuda_ms(lambda: gn.plain(z, dx, win), reps=5)
     Hb, gb = H_k.contiguous(), g_k.contiguous()
     t["k2_8"] = cuda_ms(lambda: mehrotra_h(G, Hb, gb, hq, IPM_SCHED[0], want_state=True))
@@ -540,14 +544,15 @@ def run_phases(dev, card: str, kind: str, args) -> int:
     b1, b1_by = bound_ms(by, fl)
     by2, fl2 = qp_work(BATCH, mI, nz, IPM_SCHED[0], False, True)
     b2, b2_by = bound_ms(by2, fl2)
-    kernels["gn_phase"].update(ms=t["k1"], plain_ms=t["k1_plain"], bound_ms=b1,
-                               bound_by=b1_by)
+    kernels["gn_phase"].update(ms=t["k1"], ms_host=t["k1_host"], plain_ms=t["k1_plain"],
+                               bound_ms=b1, bound_by=b1_by)
     kernels["mehrotra_h"].update(ms=t["k2_8"], plain_ms=t["k2_8_plain"], bound_ms=b2,
                                  bound_by=b2_by)
     by22, fl22 = qp_work(BATCH, mI, nz, IPM_SCHED[1], True, False)
     log(f"  bound K1 {b1:.4f} ms ({b1_by}; {by} B, {fl:.4g} flop); K2 8 iters "
         f"{b2:.4f} ms ({b2_by}; {by2} B, {fl2:.4g} flop); K2 2 iters "
         f"{bound_ms(by22, fl22)[0]:.4f} ms {tag}")
+    k1_report(dev, tag, kernels, gn)
     narrow_k2_report(dev, tag, kernels, ptxas["mehrotra_h"], gn, G, h0, Hp)
     if args.profile:
         profile_fleet(dataclasses.replace(fcfg, iterations=3), fleet_kw, dx_init, tag)
@@ -1091,7 +1096,7 @@ def kernel_route_phases(dev, tag: str, args, kernels: dict, cfg, sc, gn, dx, win
             d_all, d_held = qp_step_gates(f"K3 vs plain ({zname}, {it} iters)",
                                           d, mu, dp, mup, it <= 8)
             k3_err, k3_held = max(k3_err, eg, d_all), max(k3_held, eg, d_held)
-            # the same device code (gn_body.cuh, mehrotra_body.cuh) on the same
+            # the same device code (gn_body.cuh, mehrotra_warp.cuh) on the same
             # inputs, with h formed in the same order (step_rhs)
             require(all(torch_equal(a, b) for a, b in ((e, e1), (g, g1), (d, x2), (mu, mu2))),
                     f"K3 equals K1 then K2 cold bit for bit ({zname}, {it} iters)")
@@ -1230,7 +1235,8 @@ def kernel_route_phases(dev, tag: str, args, kernels: dict, cfg, sc, gn, dx, win
          "k3_16_plain": cuda_ms(lambda: monos[16].plain(z0, dx, win), reps=2, warmup=1),
          "k3_8": cuda_ms(lambda: monos[8](z1, dx, win)),
          "k3_8_plain": cuda_ms(lambda: monos[8].plain(z1, dx, win), reps=2, warmup=1),
-         "k4": cuda_ms(lambda: k4.solve(g4, h4), reps=10),
+         "k4": graph_ms(lambda: k4.solve(g4, h4), reps=3),
+         "k4_host": cuda_ms(lambda: k4.solve(g4, h4), reps=10),
          "k4_plain": cuda_ms(lambda: k4p.solve(g4, h4), reps=1, warmup=1),
          "mono_solve": cuda_ms(lambda: solves["pallas_mono"](dx, win, z0), reps=5),
          "pallas_solve": cuda_ms(lambda: solves["pallas"](dx, win, z0), reps=5)}
@@ -1247,8 +1253,9 @@ def kernel_route_phases(dev, tag: str, args, kernels: dict, cfg, sc, gn, dx, win
     b4 = bound_ms(*shared_qp_work(COHORT, lqp.G.shape[0], lqp.nz, 20))
     kernels["gn_mehrotra"].update(ms=t["k3_16"], plain_ms=t["k3_16_plain"], bound_ms=b3[16][0],
                                   bound_by=b3[16][1])
-    kernels["mehrotra"].update(ms=t["k4"], plain_ms=t["k4_plain"], bound_ms=b4[0],
-                               bound_by=b4[1])
+    kernels["mehrotra"].update(ms=t["k4"], ms_host=t["k4_host"], plain_ms=t["k4_plain"],
+                               bound_ms=b4[0], bound_by=b4[1])
+    k4_report(dev, tag, kernels, lqp.G.shape, COHORT)
     log(f"  bound K3 16 iters {b3[16][0]:.4f} ms ({b3[16][1]}), 8 iters {b3[8][0]:.4f} ms "
         f"({b3[8][1]}); K4 {b4[0]:.4f} ms ({b4[1]}) {tag}")
     kernels["gn_mehrotra"].update(ms_8_iters=t["k3_8"], plain_ms_8_iters=t["k3_8_plain"],
@@ -1733,6 +1740,62 @@ def chol_report(dev, tag: str, kernels: dict, runs) -> None:
                 f"{blocks} blocks, {smem} B shared, {resident} lanes an SM {tag}")
     for name, row in rows.items():
         kernels[name].update(row)
+
+
+def k1k4_tool():
+    """tools/k1_k4_compare.py: K1's and K4's shared memory and lanes an SM as
+    the kernels compute them."""
+    split_tool()
+    import k1_k4_compare
+
+    return k1_k4_compare
+
+
+def k1_report(dev, tag: str, kernels: dict, gn) -> None:
+    """Phase 6's K1 report: its device time (graph replay) at the cohort,
+    batch 2048 and the repair's K on seeded bench inputs, with the lanes a
+    block the host picks, the lanes an SM the kernel holds, and the
+    kernel's shared memory held to the host's."""
+    import torch
+
+    from lbmpc_tpu_torch.ops import gn_kernel
+    from lbmpc_tpu_torch.ops.gn_kernel import narrow_gn_launch
+    from lbmpc_tpu_torch.ops.qp_kernel import sm_count
+
+    dx, win, z = bench_inputs(np.random.default_rng(2), COHORT, gn.nz, dev)
+    row = {"ms_by_batch": {}, "lanes_a_block": {}, "lanes_an_sm": {}}
+    for B in (COHORT, BATCH, REPAIR_K):
+        ins = (z[:B].contiguous(), dx[:B].contiguous(), win.index(torch.arange(B, device=dev)))
+        lanes, blocks, smem = narrow_gn_launch(gn.nz, Q, B, sms=sm_count(dev))
+        c_smem, resident = k1k4_tool().launch_shape(gn_kernel.KERNEL, "gn_phase", gn.nz, Q,
+                                                    lanes)
+        require(c_smem == smem, f"K1's shared memory at B={B} is the host's "
+                f"narrow_gn_smem_bytes ({smem} B)")
+        ms = graph_ms(lambda: gn(*ins))
+        row["ms_by_batch"][str(B)] = ms
+        row["lanes_a_block"][str(B)] = lanes
+        row["lanes_an_sm"][str(B)] = resident
+        log(f"  time k1 B={B}: {ms:.4f} ms (device); {lanes} lanes a block, {blocks} blocks, "
+            f"{smem} B shared, {resident} lanes an SM {tag}")
+    kernels["gn_phase"].update(row)
+
+
+def k4_report(dev, tag: str, kernels: dict, shape: tuple, B: int) -> None:
+    """Phase 16's K4 launch report at (mI, nz) = shape and batch B: the lanes
+    a block the host picks, the lanes an SM the kernel holds, and the
+    kernel's shared memory held to the host's."""
+    from lbmpc_tpu_torch.ops import qp_kernel
+    from lbmpc_tpu_torch.ops.qp_kernel import shared_launch, sm_count
+
+    mI, nz = shape
+    lanes, blocks, smem = shared_launch(mI, nz, B, sms=sm_count(dev))
+    c_smem, resident = k1k4_tool().launch_shape(qp_kernel.KERNEL_SHARED, "mehrotra", mI, nz,
+                                                lanes)
+    require(c_smem == smem, f"K4's shared memory at B={B} is the host's shared_smem_bytes "
+            f"({smem} B)")
+    kernels["mehrotra"].update(lanes_a_block=lanes, lanes_an_sm=resident)
+    log(f"  K4 B={B}: {lanes} lanes a block, {blocks} blocks, {smem} B shared, {resident} "
+        f"lanes an SM {tag}")
 
 
 def k1w_report(dev, tag: str, kernels: dict, gns: dict, gin: dict) -> None:
@@ -2248,7 +2311,7 @@ def finish(card: str, kind: str, kernels: dict, args) -> int:
         log(f"phase {LAST_PHASE}: kernels")
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
-        extra = ("max_abs_err_held", "nan_lanes", "far_from_float64", "ms_8_iters",
+        extra = ("ms_host", "max_abs_err_held", "nan_lanes", "far_from_float64", "ms_8_iters",
                  "plain_ms_8_iters", "bound_ms_8_iters", "bound_ms_dense", "ms_2_iters",
                  "ms_by_batch", "lanes_a_block", "lanes_an_sm", "ptxas")
         rows = [{**{k: v.get(k) for k in keys}, **{k: v[k] for k in extra if k in v}}

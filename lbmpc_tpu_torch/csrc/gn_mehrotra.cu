@@ -24,9 +24,10 @@
 // GN stages, then each Mehrotra iteration's factorization and sweeps.
 //
 // Design: K2's. A block of `warps` warps stages G once; each warp stages its
-// own lane's window, runs K1's GN body (gn::lane, already a warp per lane)
-// into its own shared H, forms h, and runs K2's loop on the same warp, with
-// no block barrier after the staging. The register count is the larger of
+// own lane's constants and window, runs K1's GN body (gn::lane, a warp a
+// lane) into the lower triangle of its own shared H, mirrors it with
+// Hconst added (gn::mirror_h), forms h, and runs K2's loop on the same warp,
+// with no block barrier after the staging. The register count is the larger of
 // the two phases' (the GN body alone wants ~200 a thread); the launch bounds
 // ask for K3_MIN_BLOCKS blocks of 8 warps an SM: 2, 128 registers and 16
 // lanes an SM with the GN body's excess spilled, measured 1.5x faster than 1
@@ -45,8 +46,9 @@ namespace {
 
 using namespace mwarp;
 
-// The lane's window and Jacobian rows (gn_body.cuh), in the warp's memory.
-__host__ __device__ constexpr int window_floats(int q) { return q * 8 + gn::kStageRows * 32; }
+// The lane's constants, window and Jacobian rows (gn_body.cuh), in the
+// warp's memory.
+__host__ __device__ constexpr int window_floats(int q) { return gn::work_floats(q); }
 
 template <int kN, class R>
 __global__ void __launch_bounds__(kMaxWarps * 32, K3_MIN_BLOCKS)
@@ -67,17 +69,16 @@ gn_mehrotra_kernel(const float* __restrict__ cst, const float* __restrict__ z,
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // whole warps leave together
   const WarpMem wm = carve(smem, mI, nz, warp, window_floats(q));
-  float* win = wm.extra;
-  float* D = win + q * 8;
+  const gn::LaneMem lm = gn::carve(wm.extra, q);
   const float* zb = z + (size_t)b * nz;
   const float* dxb = dx0 + (size_t)b * gn::kN;
 
-  gn::stage_window(win, X, Y, valid, b, q, lane, 32);
+  gn::stage(lm, cst, X, Y, valid, b, q, lane);
   for (int i = lane; i < kVec; i += 32) wm.xs[i] = wm.dxs[i] = 0.f;
   for (int i = lane; i < kN * m_stride(nz); i += 32) wm.H[i] = 0.f;  // zero past nz
   __syncwarp();
-  float gl = gn::lane(cst, zb, dxb, win, D, lane, N, q, e_out + (size_t)b * ne, wm.H,
-                      m_stride(nz));
+  float gl = gn::lane(lm, zb, dxb, wm.H, m_stride(nz), lane, N, q, e_out + (size_t)b * ne);
+  gn::mirror_h(wm.H, m_stride(nz), cst + gn::C_HCONST, nz, lane);
   if (lane < nz) g_out[(size_t)b * nz + lane] = gl;
   else gl = 0.f;
 

@@ -31,7 +31,7 @@
 // keep gnw::lane's association on T = gnw::threads(nz) threads: lane l sums
 // the points of each virtual warp w (p = l + 32 w + j T) apart, each virtual
 // warp's 20 partials close with the butterfly's xor pairings run as a
-// reduce-scatter (21 shuffles for 20 sums, reduce_scatter below), and the
+// reduce-scatter (21 shuffles for 20 sums, gn_body.cuh's reduce_scatter), and the
 // virtual warps add in order from 0.f. The stage's Jacobian rows go through
 // the warp's shared buffer D; only H's lower triangle is accumulated, packed
 // row by row in the warp's shared memory: at stage k the entries of the
@@ -48,6 +48,9 @@
 namespace {
 
 using gn::kFull;
+using gn::reduce_scatter;   // the butterfly's pairings (gn_body.cuh)
+using gn::rs_lane;
+using gn::tri;
 constexpr int kN = gnw::kN;
 constexpr int kSums = gnw::kSums;
 constexpr int kMaxLanes = 8;            // lanes (warps) a block
@@ -108,8 +111,6 @@ struct Clock {
 };
 #endif
 
-__host__ __device__ constexpr int tri(int i) { return i * (i + 1) / 2; }
-
 // Floats of one lane's shared memory: D rows 0..3 (a float4 a column), the
 // window (q points of 8 floats), D row 4, and H's packed lower triangle;
 // rounded to 4 so the next lane's float4s stay aligned.
@@ -119,45 +120,6 @@ __host__ __device__ constexpr size_t lane_floats(int nz, int q) {
 
 size_t smem_bytes(int nz, int q, int lanes) {
   return (kConst + lanes * lane_floats(nz, q)) * sizeof(float);
-}
-
-// The lane that holds sum i after reduce_scatter.
-__host__ __device__ constexpr int rs_lane(int i) {
-  return 16 * (i / 10) + 8 * (i % 10 / 5)
-         + (i % 5 == 1 ? 2 : i % 5 == 2 ? 1 : i % 5 == 3 ? 4 : i % 5 == 4 ? 6 : 0);
-}
-
-// gn::warp_sum of 20 values at once: at each xor offset 16, 8, 4, 2, 1 a
-// lane adds its partner's value to its own (the butterfly's sums, bit for
-// bit), but keeps only the sums its half of the pair needs from then on.
-// Returns, in lane l, the butterfly's sum of value i for the i whose
-// rs_lane(i) is l (lanes 1 apart with equal bits 1..4 hold the sum of
-// value 2 + 5 b3 + 10 b4 both); v is clobbered.
-__device__ __forceinline__ float reduce_scatter(float (&v)[kSums], int lane) {
-  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2, b0 = lane & 1;
-#pragma unroll
-  for (int j = 0; j < 10; ++j) {  // 20 -> 10: value j + 10 b4
-    const float keep = b4 ? v[j + 10] : v[j], send = b4 ? v[j] : v[j + 10];
-    v[j] = keep + __shfl_xor_sync(kFull, send, 16);
-  }
-#pragma unroll
-  for (int j = 0; j < 5; ++j) {  // 10 -> 5: value j + 5 b3 + 10 b4
-    const float keep = b3 ? v[j + 5] : v[j], send = b3 ? v[j] : v[j + 5];
-    v[j] = keep + __shfl_xor_sync(kFull, send, 8);
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {  // 5 -> 3: (j + 3 b2), and 2 in both halves
-    const float keep = b2 ? v[j + 3] : v[j], send = b2 ? v[j] : v[j + 3];
-    v[j] = keep + __shfl_xor_sync(kFull, send, 4);
-  }
-  v[2] = v[2] + __shfl_xor_sync(kFull, v[2], 4);
-  {  // 3 -> 2: (b1 ? 1 : 0) + 3 b2, and 2
-    const float keep = b1 ? v[1] : v[0], send = b1 ? v[0] : v[1];
-    v[0] = keep + __shfl_xor_sync(kFull, send, 2);
-  }
-  v[2] = v[2] + __shfl_xor_sync(kFull, v[2], 2);
-  const float keep = b0 ? v[2] : v[0], send = b0 ? v[0] : v[2];  // 2 -> 1
-  return keep + __shfl_xor_sync(kFull, send, 1);
 }
 
 // H += 2 sum_r D_r D_r' over the packed lower triangle's first E entries,

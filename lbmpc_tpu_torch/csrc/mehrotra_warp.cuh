@@ -2,12 +2,14 @@
 // corrector loop, built for how an H100 hides latency: one warp owns one
 // lane, several lanes share a block, and inside an iteration the warp meets
 // no block barrier. Shared by mehrotra_h.cu (K2) and gn_mehrotra.cu (K3);
-// K4 (mehrotra.cu) keeps mehrotra_body.cuh.
+// K4 (mehrotra.cu) runs its own loop on four warps a lane with this file's
+// staging of G and row products.
 //
 //   min 1/2 x'H x + g'x  s.t.  G x <= h   (G shared by the batch)
 //
-// Semantics are mehrotra_body.cuh's, which the reference's K2 fixes
-// (pallas_ipm.py:138-176): d = min(z / max(s, 1e-25), d_cap),
+// Semantics are the reference's K2's (pallas_ipm.py:138-176), as the
+// one-block-a-lane loop these kernels replaced ran them (the "block loop"
+// below: mehrotra_body.cuh's solve up to commit c22a8d5): d = min(z / max(s, 1e-25), d_cap),
 // M = G' diag(d) G + H + 1e-6 I, Jacobi equilibration with
 // sc = 1/sqrt(max(diag M, 1e-30)), Cholesky with the pivot floor
 // sqrt(max(., 1e-30)), two triangular solves each for the predictor and the
@@ -43,7 +45,7 @@
 //
 // Rounding. Every operation is written out (__fmaf_rn, __fmul_rn, ...) so
 // that K2 and K3, which inline this loop, round alike whatever the compiler
-// would fuse, and as mehrotra_body.cuh's loop rounds under nvcc's
+// would fuse, and as the block loop rounds under nvcc's
 // contraction, so that at mI <= 256 K2 and K3 return that loop's bits
 // (tools/k2_numerics.py, tools/k2_compare.py check it against an earlier
 // tree; above 256 rows, where a thread of that loop held several, they
@@ -245,7 +247,7 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
-// sum over rows of f(t) in mehrotra_body.cuh's block order: a thread of that
+// sum over rows of f(t) in the block loop's order: a thread of that
 // 256-thread block summed rows tid + 256 k (fma chain), each warp's lanes by
 // a butterfly, then warp 0 the 8 warp totals by a butterfly (zeros above
 // lane 8). Row r = lane + 32 t was thread (t mod 8) * 32 + lane's there.
@@ -293,7 +295,7 @@ __device__ __forceinline__ float row_dot(const float* Gs, int r, const float4 (&
   return a;
 }
 
-// (G'v)[c] for thread c < nz (0 above): mehrotra_body.cuh's col_reduce order,
+// (G'v)[c] for thread c < nz (0 above): the block loop's col_reduce order,
 // warp w's partial over rows w, w + 8, ..., then the 8 partials in order.
 template <int kN>
 __device__ __forceinline__ float col_sum(const float* Gs, const float* v, int c, int mI,
@@ -329,7 +331,7 @@ __device__ __forceinline__ float col_sum(const float* Gs, const float* v, int c,
 // M = G' diag(d) G + H + 1e-6 I into wm.M's lower triangle (d in wm.v), the
 // identity past nz: thread k owns the 4 x 4 block (P, Q), P >= Q, of the
 // lower block triangle; entry (p, q), q <= p < nz, sums G[r][q] (d[r] G[r][p])
-// over the rows in order, then adds H[p][q] and the ridge: mehrotra_body.cuh's
+// over the rows in order, then adds H[p][q] and the ridge: the block loop's
 // assembly.
 template <int kN>
 __device__ __forceinline__ void assemble(const float* Gs, const WarpMem& wm, int lane, int mI,
@@ -377,7 +379,7 @@ __device__ __forceinline__ void assemble(const float* Gs, const WarpMem& wm, int
 // Right-looking Cholesky of the equilibrated M (lower triangle in wm.M, scale
 // sc in thread c) with the pivot floor; thread p holds row p in registers and
 // leaves L's row p in wm.M. Each entry sees the updates of columns 0, 1, ...
-// in turn, as in mehrotra_body.cuh's left-looking loop.
+// in turn, as in the block loop's left-looking factorization.
 template <int kN>
 __device__ __forceinline__ void factor(const WarpMem& wm, int lane, float sc) {
   constexpr int HS = kN + 1;

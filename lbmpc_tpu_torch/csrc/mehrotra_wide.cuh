@@ -4,7 +4,7 @@
 //
 //   min 1/2 x'H x + g'x  s.t.  G x <= h   (G shared by the batch)
 //
-// The iteration is mehrotra_body.cuh's (K2's), with its constants and its
+// The iteration is K2's (mehrotra_warp.cuh), with its constants and its
 // order of steps: d = min(z / max(s, 1e-25), d_cap), M = G' diag(d) G + H +
 // 1e-6 I, symmetric Jacobi equilibration, Cholesky with the pivot floor, two
 // triangular solves each for the predictor and the corrector, sigma =

@@ -3,7 +3,8 @@ H = 2J'J + Hconst and g = 2J'e for every lane, in one launch.
 
 Port of lbmpc_tpu/ops/pallas_gn.py (build_pallas_gn_kernel) over its
 domain, the m=1 model with n=4 states and one theta, in two kernels:
-- K1 (csrc/gn_phase.cu, one warp per lane): the fmincon family at nz <= 32;
+- K1 (csrc/gn_phase.cu, one warp per lane, several lanes a block: the
+  shape from `narrow_gn_launch`): the fmincon family at nz <= 32;
 - K1w (csrc/gn_wide.cu, one warp per lane, several lanes a block: the
   shape from `wide_launch`): every other shape up to nz = 128, both
   families — the casadi DMS flagship (nz=101) and the fmincon family above
@@ -25,12 +26,13 @@ from lbmpc_tpu_torch.controllers.lbmpc import (make_residual_and_jac,
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.oracle import DataWindow
 from lbmpc_tpu_torch.ops._cuda import WIDE_FLAGS, I, P, CudaKernel, check, ptr
-from lbmpc_tpu_torch.ops.qp_kernel import H100_SMS, SMEM_OPTIN, sm_count
+from lbmpc_tpu_torch.ops.qp_kernel import H100_SMS, lanes_a_block, sm_count
 
-KERNEL = CudaKernel("gn_phase", [P] * 9 + [I, I, I, P])
+KERNEL = CudaKernel("gn_phase", [P] * 9 + [I, I, I, I, P])
 KERNEL_WIDE = CudaKernel("gn_wide", [P] * 9 + [I, I, I, I, I, P], flags=WIDE_FLAGS)
 NZ_MAX, NZ_MAX_WIDE = 32, 128   # csrc/gn_body.cuh, csrc/gn_wide_body.cuh kNzMax
 WIDE_MAX_LANES = 8              # csrc/gn_wide.cu kMaxLanes
+NARROW_MAX_LANES = 8            # csrc/gn_phase.cu kMaxLanes
 
 # constant block offsets (csrc/gn_body.cuh and gn_wide_body.cuh enums)
 _C_A, _C_B, _C_KS, _C_LQ, _C_LP, _C_LAM, _C_XSREF = 0, 16, 20, 24, 40, 56, 60
@@ -54,6 +56,31 @@ def wide_smem_bytes(nz: int, q: int, lanes: int) -> int:
     return 4 * (_C_HCONST + lanes * lane)
 
 
+def narrow_gn_smem_bytes(nz: int, q: int, lanes: int) -> int:
+    """K1's dynamic shared memory for a block of `lanes` lanes
+    (csrc/gn_phase.cu lane_floats): each lane's constants before Hconst,
+    window (8 q), Jacobian rows (5 x 32) (csrc/gn_body.cuh work_floats) and
+    H's accumulator (nz x nz), rounded up to 4 floats."""
+    lane = -(-(_C_HCONST + 8 * q + 5 * 32 + nz * nz) // 4) * 4
+    return 4 * lanes * lane
+
+
+def narrow_gn_launch(nz: int, q: int, B: int, sms: int = H100_SMS) -> tuple:
+    """K1's launch shape for B lanes at nz decision variables and a window
+    of q points on a card of `sms` SMs: (lanes a block, blocks, the block's
+    shared memory in bytes). A warp runs a lane; a block holds the most
+    lanes, a power of two up to NARROW_MAX_LANES, that still give every SM
+    a block (a small batch, such as the repair's 24 lanes, sees one lane's
+    latency, so it spreads as wide as it can) and fit the opt-in shared
+    memory. Raises where the kernel does not take the shape (the fmincon
+    family's N >= 3: 4 <= nz <= NZ_MAX) or one lane does not fit."""
+    if not (4 <= nz <= NZ_MAX and q >= 1 and B >= 0):
+        raise ValueError(f"K1 takes 4 <= nz <= {NZ_MAX} (N >= 3), q >= 1 and a batch B >= 0 "
+                         f"(got nz={nz}, q={q}, B={B})")
+    return lanes_a_block(B, NARROW_MAX_LANES, sms, lambda n: narrow_gn_smem_bytes(nz, q, n),
+                         f"K1 at nz={nz}, q={q}")
+
+
 def wide_launch(nz: int, q: int, B: int, sms: int = H100_SMS) -> tuple:
     """K1w's launch shape for B lanes at nz decision variables and a window
     of q points on a card of `sms` SMs: (lanes a block, blocks, the block's
@@ -65,16 +92,8 @@ def wide_launch(nz: int, q: int, B: int, sms: int = H100_SMS) -> tuple:
     if not (2 <= nz <= NZ_MAX_WIDE and q >= 1 and B >= 0):
         raise ValueError(f"K1w takes 2 <= nz <= {NZ_MAX_WIDE}, q >= 1 and a batch B >= 0 "
                          f"(got nz={nz}, q={q}, B={B})")
-    lanes = WIDE_MAX_LANES
-    while lanes > 1 and -(-B // lanes) < sms:
-        lanes //= 2
-    while lanes > 1 and wide_smem_bytes(nz, q, lanes) > SMEM_OPTIN:
-        lanes //= 2
-    smem = wide_smem_bytes(nz, q, lanes)
-    if smem > SMEM_OPTIN:
-        raise ValueError(f"one lane of K1w at nz={nz}, q={q} needs {smem} bytes of shared "
-                         f"memory, more than the {SMEM_OPTIN} a block may use")
-    return lanes, -(-B // lanes), smem
+    return lanes_a_block(B, WIDE_MAX_LANES, sms, lambda n: wide_smem_bytes(nz, q, n),
+                         f"K1w at nz={nz}, q={q}")
 
 
 class GNPhase:
@@ -181,7 +200,8 @@ class GNPhase:
         args = (ptr(self.cst), ptr(z), ptr(dx0), ptr(window.X), ptr(window.Y),
                 ptr(window.valid), ptr(e), ptr(H), ptr(g), I(Bsz), I(self.N), I(q))
         if self.narrow:
-            KERNEL.launch(dev, *args)
+            lanes = narrow_gn_launch(self.nz, q, Bsz, sms=sm_count(dev))[0]
+            KERNEL.launch(dev, *args, I(lanes))
         else:
             lanes = wide_launch(self.nz, q, Bsz, sms=sm_count(dev))[0]
             KERNEL_WIDE.launch(dev, *args, I(int(self.family == "casadi")), I(lanes))

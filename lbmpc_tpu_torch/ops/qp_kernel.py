@@ -3,11 +3,12 @@ whole loop in one launch: K2 with a Hessian per lane at nz <= 32
 (csrc/mehrotra_h.cu: one warp a lane, several lanes a block, the launch
 shape from narrow_launch), K2w the same at 32 < nz <= 128
 (csrc/mehrotra_h_wide.cu: G stays in device memory, the factorization is
-block-wide), K4 with one H shared by the batch (csrc/mehrotra.cu). K2 runs
-the loop of csrc/mehrotra_warp.cuh, which K3 (ops/mono_kernel) runs too; K4
-runs csrc/mehrotra_body.cuh's, and K2w the same iteration from
-csrc/mehrotra_wide.cuh. mehrotra_h picks K2 or K2w by nz, with one wrapper
-contract.
+block-wide), K4 with one H shared by the batch (csrc/mehrotra.cu: four
+warps a lane, several lanes a block, the launch shape from shared_launch).
+K2 runs the loop of csrc/mehrotra_warp.cuh, which K3 (ops/mono_kernel) runs
+too; K2w the same iteration from csrc/mehrotra_wide.cuh; K4 its own loop
+(no equilibration, d capped at 1e7, the reference's padded rows).
+mehrotra_h picks K2 or K2w by nz, with one wrapper contract.
 
 Ports of lbmpc_tpu/ops/pallas_ipm.py: build_pallas_qp_solver_h (K2) and
 build_pallas_qp_solver (K4). Each lane solves min 1/2 x'H x + g'x s.t.
@@ -30,7 +31,7 @@ from lbmpc_tpu_torch.ops._cuda import WIDE_FLAGS, F, I, P, CudaKernel, check, pt
 KERNEL = CudaKernel("mehrotra_h", [P] * 10 + [I, I, I, I, F, F, F, I, P])
 KERNEL_WIDE = CudaKernel("mehrotra_h_wide", [P] * 12 + [I, I, I, I, F, F, F, P],
                          flags=WIDE_FLAGS)
-KERNEL_SHARED = CudaKernel("mehrotra", [P] * 7 + [I, I, I, I, F, F, P])
+KERNEL_SHARED = CudaKernel("mehrotra", [P] * 7 + [I, I, I, I, F, F, I, P])
 
 BIG = 1e6           # ratio-test sentinel (pallas_ipm.py:34)
 RIDGE = 1e-6        # KKT ridge
@@ -43,6 +44,9 @@ NZ_MAX_WIDE = 128           # csrc/mehrotra_wide.cuh kNzMax (K2w)
 NARROW_MAX_WARPS, NARROW_VEC, NARROW_REG_ROWS, NARROW_STATE_VECS = 8, 36, 256, 7
 SMEM_OPTIN = 232448         # shared memory a block may use on an H100 (227 KB)
 H100_SMS = 132
+# K4's launch shape (csrc/mehrotra.cu): lanes a block at most, a lane's
+# threads and the assembly's, G'v's row partials, the reduction slots a lane
+SHARED_MAX_LANES, SHARED_GROUP, SHARED_ASM, SHARED_PARTS, SHARED_RED = 4, 128, 96, 8, 48
 
 
 def narrow_padded_nz(nz: int) -> int:
@@ -64,7 +68,9 @@ def narrow_warp_floats(mI: int, nz: int, q: int = 0) -> int:
     NARROW_REG_ROWS rows the per-row state (csrc/mehrotra_warp.cuh
     warp_floats)."""
     r4 = lambda n: (n + 3) & ~3
-    extra = q * 8 + 5 * 32 if q else 0
+    # K3: the lane's constants before Hconst (72), window and Jacobian rows
+    # (csrc/gn_body.cuh work_floats)
+    extra = 72 + q * 8 + 5 * 32 if q else 0
     kn = narrow_padded_nz(nz)
     return (2 * NARROW_VEC + 2 * r4(kn * (kn + 1)) + r4(mI)
             + (NARROW_STATE_VECS * r4(mI) if mI > NARROW_REG_ROWS else 0) + extra)
@@ -90,16 +96,55 @@ def narrow_launch(mI: int, nz: int, B: int, q: int = 0, sms: int = H100_SMS) -> 
     if not (1 <= nz <= NZ_MAX and 1 <= mI <= MI_MAX and B >= 0 and q >= 0):
         raise ValueError(f"K2 and K3 take 1 <= nz <= {NZ_MAX}, 1 <= mI <= {MI_MAX} and a "
                          f"batch B >= 0 (got nz={nz}, mI={mI}, B={B}, q={q})")
-    warps = NARROW_MAX_WARPS
-    while warps > 1 and -(-B // warps) < sms:
-        warps //= 2
-    while warps > 1 and narrow_smem_bytes(mI, nz, warps, q) > SMEM_OPTIN:
-        warps //= 2
-    smem = narrow_smem_bytes(mI, nz, warps, q)
-    if smem > SMEM_OPTIN:
-        raise ValueError(f"one lane of K2/K3 at mI={mI}, nz={nz}, q={q} needs {smem} bytes "
-                         f"of shared memory, more than the {SMEM_OPTIN} a block may use")
-    return warps, -(-B // warps), smem
+    return lanes_a_block(B, NARROW_MAX_WARPS, sms, lambda n: narrow_smem_bytes(mI, nz, n, q),
+                         f"K2/K3 at mI={mI}, nz={nz}, q={q}")
+
+
+def lanes_a_block(B: int, most: int, sms: int, smem, what: str) -> tuple:
+    """The launch shape of a kernel that runs several lanes a block: the
+    most lanes, a power of two up to `most`, that still give every SM a
+    block (up to `sms` lanes each has a block of its own; a small batch
+    sees one lane's latency, so it spreads as wide as it can) and fit the
+    opt-in shared memory, `smem(lanes)` bytes. Returns (lanes, blocks,
+    bytes); raises where one lane of `what` does not fit."""
+    lanes = most
+    while lanes > 1 and -(-B // lanes) < sms:
+        lanes //= 2
+    while lanes > 1 and smem(lanes) > SMEM_OPTIN:
+        lanes //= 2
+    if smem(lanes) > SMEM_OPTIN:
+        raise ValueError(f"one lane of {what} needs {smem(lanes)} bytes of shared memory, "
+                         f"more than the {SMEM_OPTIN} a block may use")
+    return lanes, -(-B // lanes), smem(lanes)
+
+
+def shared_smem_bytes(mI: int, nz: int, lanes: int) -> int:
+    """K4's dynamic shared memory for a block of `lanes` lanes
+    (csrc/mehrotra.cu block_floats): G once (rows of narrow_g_stride), H
+    once (rows of the padded width, odd stride), and each lane's x, dx and
+    L's reciprocal pivots, M, three mI-vectors, the assembly's partials (a 4 x 4 block of M's
+    lower block triangle over each of SHARED_ASM // tasks row ranges), G'v's
+    row partials and the reduction slots."""
+    r4 = lambda n: (n + 3) & ~3
+    kn = narrow_padded_nz(nz)
+    tasks = (kn // 4) * (kn // 4 + 1) // 2
+    lane = (3 * NARROW_VEC + r4(kn * (kn + 1)) + 3 * r4(mI) + SHARED_ASM // tasks * tasks * 16
+            + SHARED_PARTS * kn + SHARED_RED)
+    return 4 * (mI * narrow_g_stride(nz) + r4(kn * (kn + 1)) + lanes * lane)
+
+
+def shared_launch(mI: int, nz: int, B: int, sms: int = H100_SMS) -> tuple:
+    """K4's launch shape for B lanes on a card of `sms` SMs: (lanes a block,
+    blocks, the block's shared memory in bytes). Four warps run a lane; a
+    block holds the most lanes, a power of two up to SHARED_MAX_LANES, that
+    still give every SM a block (up to `sms` lanes each has a block of its
+    own) and fit the opt-in shared memory (at mI = 1024, nz = 32 two do).
+    Raises where the kernel does not take the shape."""
+    if not (1 <= nz <= NZ_MAX and 1 <= mI <= MI_MAX and B >= 0):
+        raise ValueError(f"K4 takes 1 <= nz <= {NZ_MAX}, 1 <= mI <= {MI_MAX} and a batch "
+                         f"B >= 0 (got nz={nz}, mI={mI}, B={B})")
+    return lanes_a_block(B, SHARED_MAX_LANES, sms, lambda n: shared_smem_bytes(mI, nz, n),
+                         f"K4 at mI={mI}, nz={nz}")
 
 
 _SMS: dict = {}
@@ -461,8 +506,9 @@ def mehrotra(G, H, g, h, iters: int, tau: float = 0.995):
     x = torch.empty(Bsz, nz, dtype=torch.float32, device=dev)
     conv = torch.empty(Bsz, dtype=torch.bool, device=dev)
     mu = torch.empty(Bsz, dtype=torch.float32, device=dev)
+    lanes = shared_launch(mI, nz, Bsz, sms=sm_count(dev))[0]
     KERNEL_SHARED.launch(dev, ptr(G), ptr(H), ptr(g), ptr(h), ptr(x), ptr(conv), ptr(mu),
-                         I(Bsz), I(mI), I(nz), I(iters), F(tau), F(SHARED_D_CAP))
+                         I(Bsz), I(mI), I(nz), I(iters), F(tau), F(SHARED_D_CAP), I(lanes))
     return x, conv, mu
 
 

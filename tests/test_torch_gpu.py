@@ -763,3 +763,173 @@ def test_wide_and_chol_shared_memory_is_the_hosts(cuda):
         for lanes in range(1, 9):
             want = chol_smem_bytes(n, lanes) if (n <= 32 or lanes == 1) else -1
             assert ch(n, lanes) == want
+
+
+# ---- K1 on a warp a lane, K4 on four warps a lane (launch shapes from the host)
+
+@pytest.mark.parametrize("B", [24, 2048, 8192])
+def test_gn_kernel_gives_a_lane_the_same_bits_anywhere(cuda, bench, B):
+    """K1 runs a lane on one warp, 1 to 8 lanes a block: one lane's inputs
+    placed at lanes 0, 1, 7, 31, 32 and B - 1 of a batch of other bench
+    lanes, and alone at B = 1, give the same e, H and g bit for bit."""
+    sc, kw = bench
+    gn = GNPhase(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, device=cuda, **kw)
+    z, dx, win = _inputs(B, sc.nz, cuda, seed=51)
+    src = 5
+    at = sorted({0, 1, 7, 31, 32, B - 1} & set(range(B)))
+    one = gn(z[src:src + 1].contiguous(), dx[src:src + 1].contiguous(),
+             win.index(torch.tensor([src], device=cuda)))
+    n0 = gn_kernel.KERNEL.launches
+    outs = gn(_place(z, src, at), _place(dx, src, at), _window_at(win, src, at))
+    assert gn_kernel.KERNEL.launches == n0 + 1
+    for a, a1 in zip(outs, one):
+        assert torch.equal(a[at], a1.expand_as(a[at]))
+    assert torch.equal(outs[1], outs[1].transpose(1, 2))
+
+
+def test_gn_kernel_keeps_a_nan_lane(cuda, bench):
+    """A lane whose dx0 holds a NaN ends with NaN in e, H and g; the other
+    lanes, its block neighbours among them (1056 lanes: 8 a block), are bit
+    for bit what they are without it."""
+    sc, kw = bench
+    gn = GNPhase(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, device=cuda, **kw)
+    B = 1056
+    z, dx, win = _inputs(B, sc.nz, cuda, seed=52)
+    e0, H0, g0 = gn(z, dx, win)
+    dx1 = dx.clone()
+    dx1[5, 1] = float("nan")
+    e1, H1, g1 = gn(z, dx1, win)
+    assert all(bool(torch.isnan(a[5]).any()) for a in (e1, H1, g1))
+    keep = [i for i in range(B) if i != 5]
+    for a, b in ((e1, e0), (H1, H0), (g1, g0)):
+        assert torch.equal(a[keep], b[keep])
+
+
+def _lmpc_lanes(cuda, B, seed):
+    """The N=20 LMPC QP of test_shared_qp_kernel_matches_plain (G (806, 21))
+    and B lanes of it around the bench operating point."""
+    from lbmpc_tpu_torch.controllers.condensed import build_fmincon_lmpc
+    from lbmpc_tpu_torch.models.mgcm import mgcm_dlti
+    from lbmpc_tpu_torch.sets.terminal import get_cons
+    from lbmpc_tpu_torch.synthesis import mat_ocp
+
+    Ad, Bd, C, _ = mgcm_dlti()
+    ocp = mat_ocp(Ad, Bd, C)
+    cs = get_cons(x_min=[0.0, 1.1875, 0.1547, -20.0], x_max=[1.0, 2.1875, 2.1547, 20.0],
+                  u_min=0.1547, u_max=2.1547, x_wp=[0.5, 1.6875, 1.1547, 0.0], u_wp=1.1547,
+                  A=Ad, B=Bd, K=ocp.Ks, LAMBDA=ocp.LAMBDA, PSI=ocp.PSI,
+                  LAMBDA_0=ocp.LAMBDA_0, PSI_0=ocp.PSI_0)
+    qp = build_fmincon_lmpc(Ad, Bd, ocp.Ks, ocp.Q, ocp.R, ocp.P, ocp.T, ocp.LAMBDA,
+                            ocp.PSI, cs, 20)
+    rng = np.random.default_rng(seed)
+    dxs = np.array([-0.35, -0.4, 0.0, 0.0]) + 0.01 * rng.standard_normal((B, 4))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda).contiguous()
+    return (t(qp.G), t(qp.H), t((qp.Gg @ dxs.T).T + qp.g0), t(qp.h0 + (qp.Hp @ dxs.T).T))
+
+
+def test_shared_qp_kernel_keeps_a_nan_lane_and_its_bits(cuda):
+    """K4 at the cohort (8192 lanes, 4 a block): a lane whose g or h holds
+    a NaN ends with NaN in mu and unconverged, and the other lanes, its
+    block neighbours among them, are bit for bit what they are without it;
+    one lane's QP placed at lanes 0, 1, 3, 4, 31 and 8191, and alone at
+    B = 1, gives the same x, flag and mu."""
+    from lbmpc_tpu_torch.ops.qp_kernel import mehrotra
+
+    G, H, g, h = _lmpc_lanes(cuda, 8192, seed=61)
+    n0 = qp_kernel.KERNEL_SHARED.launches
+    x0, c0, mu0 = mehrotra(G, H, g, h, 20)
+    assert qp_kernel.KERNEL_SHARED.launches == n0 + 1
+    g1, h1 = g.clone(), h.clone()
+    g1[3, 0] = float("nan")
+    h1[9, 100] = float("nan")
+    x1, c1, mu1 = mehrotra(G, H, g1, h1, 20)
+    for lane in (3, 9):
+        assert bool(torch.isnan(mu1[lane])) and not bool(c1[lane])
+    keep = [i for i in range(g.shape[0]) if i not in (3, 9)]
+    for a, b in ((x1, x0), (c1, c0), (mu1, mu0)):
+        assert torch.equal(a[keep], b[keep])
+    src, at = 5, [0, 1, 3, 4, 31, 8191]
+    xs, cs_, mus = mehrotra(G, H, _place(g, src, at), _place(h, src, at), 20)
+    x1, c1, mu1 = mehrotra(G, H, g[src:src + 1].contiguous(), h[src:src + 1].contiguous(), 20)
+    for a, a1 in ((xs, x1), (cs_, c1), (mus, mu1)):
+        assert torch.equal(a[at], a1.expand_as(a[at]))
+    assert torch.equal(x1, x0[src:src + 1]) and torch.equal(mu1, mu0[src:src + 1])
+
+
+def _lmpc_edge_qp(cuda, mI: int, nz: int, B: int, seed: int):
+    """A QP of K4's shape (mI, nz) cut from the N=20 LMPC QP: its first
+    min(mI, 128) rows (the early stages' boxes) on its first min(nz, 21)
+    columns, with its H and g there; past nz = 21 decoupled variables (H
+    diagonal in [1, 2], g normal), past 128 rows loose ones (|G_r|_1 = 1,
+    h = 10, never active)."""
+    G0, H0, g0, h0 = (a.cpu().numpy() for a in _lmpc_lanes(cuda, B, seed))
+    rng = np.random.default_rng(seed)
+    k, m = min(nz, 21), min(mI, 128)
+    H = np.diag(rng.uniform(1.0, 2.0, nz))
+    H[:k, :k] = H0[:k, :k]
+    g = 0.7 * rng.standard_normal((B, nz))
+    g[:, :k] = g0[:, :k]
+    G = np.zeros((mI, nz))
+    G[:m, :k] = G0[:m, :k]
+    h = np.full((B, mI), 10.0)
+    h[:, :m] = h0[:, :m]
+    if mI > m:
+        E = rng.standard_normal((mI - m, nz))
+        G[m:] = E / np.abs(E).sum(axis=1, keepdims=True)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda).contiguous()
+    return t(G), t(H), t(g), t(h)
+
+
+@pytest.mark.parametrize("mI", [1, 127, 128, 806, 1024])
+@pytest.mark.parametrize("nz", [1, 8, 21, 32])
+def test_shared_qp_kernel_at_the_domain_edges(cuda, mI, nz):
+    """K4 at the edges of its domain (nz 1 and 8: padded width 8, 21: 24,
+    32: 32; mI 1, 127 and 806 with the reference's padded rows, 128 and
+    1024 without; 8 rows a thread at 1024) against its plain version on
+    LMPC-cut QPs (_lmpc_edge_qp, 1024 lanes, 20 iterations), with phase
+    15's gates: |dx| median < 1e-6 over the finite lanes, a lane with a NaN
+    flagged unconverged, the share of lanes beyond 5e-2 of the float64
+    optimum (60 iterations) at most 0.5 pp above the plain version's, conv
+    > 0.95 and within 0.5 pp of the plain version's."""
+    from lbmpc_tpu_torch.ops.qp_kernel import mehrotra
+
+    G, H, g, h = _lmpc_edge_qp(cuda, mI, nz, 1024, seed=1000 * mI + nz)
+    xk, ck, _ = mehrotra(G, H, g, h, 20)
+    xp, cp, _ = mehrotra_plain(G, H, g, h, 20)
+    x64 = mehrotra_plain(G.double(), H.double(), g.double(), h.double(), 60)[0]
+    fin = (xk - xp).abs().amax(dim=1).isfinite()
+    assert (xk - xp)[fin].abs().median().item() < 1e-6
+    assert not bool((xk.isnan().any(dim=1) & ck).any())
+    far = [(~((a.double() - x64).abs().amax(dim=1) <= 5e-2)).float().mean().item()
+           for a in (xk, xp)]
+    assert far[0] <= far[1] + 0.005
+    fk, fp = ck.float().mean().item(), cp.float().mean().item()
+    assert fk > 0.95 and abs(fk - fp) <= 0.005
+
+
+def test_narrow_gn_and_shared_qp_shared_memory_is_the_hosts(cuda):
+    """The block's shared memory that gn_kernel.narrow_gn_launch and
+    qp_kernel.shared_launch size the launches by is the one K1 and K4
+    carve, for every lane count they take."""
+    import ctypes
+
+    from lbmpc_tpu_torch.ops.gn_kernel import narrow_gn_smem_bytes
+    from lbmpc_tpu_torch.ops.qp_kernel import shared_smem_bytes
+
+    def c_fn(k, name):
+        k.fn()
+        fn = getattr(ctypes.CDLL(str(k.library_path())), name)
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_longlong
+        return fn
+
+    k1 = c_fn(gn_kernel.KERNEL, "gn_phase_smem_bytes")
+    for nz in range(4, 33):
+        for q in (1, 7, 100, 1000):
+            for lanes in range(1, 9):
+                assert k1(nz, q, lanes) == narrow_gn_smem_bytes(nz, q, lanes)
+    k4 = c_fn(qp_kernel.KERNEL_SHARED, "mehrotra_smem_bytes")
+    for mI in (1, 7, 127, 128, 214, 806, 1024):
+        for nz in (1, 2, 8, 9, 16, 21, 24, 25, 32):
+            for lanes in range(1, qp_kernel.SHARED_MAX_LANES + 1):
+                assert k4(mI, nz, lanes) == shared_smem_bytes(mI, nz, lanes)

@@ -21,9 +21,10 @@ its Mehrotra loop; its GN phase is the rest of its time.
 
 --csrc DIR builds the kernels from another lbmpc_tpu_torch/csrc with the
 same C interface and a `<source>_clocks` reader. The one-block-a-lane K2
-and K3 that ran csrc/mehrotra_body.cuh's loop (K4's now) are split so: DIR
-= `git archive 5f643e8 lbmpc_tpu_torch/csrc` unpacked, with this tree's
-mehrotra_body.cuh (its PhaseClock) copied in, `K2_CLOCKS_EXPORT(<source>)`
+and K3 that ran csrc/mehrotra_body.cuh's block loop are split so: DIR
+= `git archive 5f643e8 lbmpc_tpu_torch/csrc` unpacked, with commit
+c22a8d5's mehrotra_body.cuh (the last that holds that loop's PhaseClock)
+copied in, `K2_CLOCKS_EXPORT(<source>)`
 appended to mehrotra_h.cu and gn_mehrotra.cu, and the package's
 ops/qp_kernel.py and ops/mono_kernel.py argtypes of that interface (no lane
 count). Needs one card; one JSON line per case, and the table.
