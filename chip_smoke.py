@@ -35,8 +35,9 @@ counts set to 0 just before it and read just after:
 It times the kernels, their plain versions, the library yardsticks, the
 solves and the fleet steps with CUDA events (K2 and K3 at batch 2048, the
 cohort and the repair's K, with their registers, spills and lanes an SM;
-K1, K1w, K4 and K5 by CUDA graph replay, their device time, K1 and K4 with
-the host-clocked reading beside it and their lanes a block and an SM),
+K1, K1w, K4, K5 and K6 by CUDA graph replay, their device time, K1, K4 and
+K6 with the host-clocked reading beside it and their lanes a block and an
+SM, K6 also its warps a lane),
 prints K2's, K3's, K2w's and K3w's time split by phase of a Mehrotra
 iteration (phases 6, 16, 23 and 24, from the phase-clock builds of
 tools/k2_split.py and tools/k2w_split.py), holds K2's lanes to the same bits
@@ -329,7 +330,7 @@ def run_phases(dev, card: str, kind: str, args) -> int:
     ptxas = {k.name: narrow_split_tool().ptxas_summary(logs.get(k.library_path().name, ""))
              for k in (qp_kernel.KERNEL, mono_kernel.KERNEL)}
     for k in (gn_kernel.KERNEL, qp_kernel.KERNEL_SHARED, gn_kernel.KERNEL_WIDE,
-              *chol_kernel.KERNELS):
+              *chol_kernel.KERNELS, *chol_kernel.BLOCKED_KERNELS):
         kernels[k.name]["ptxas"] = compare_tool().ptxas_summary(
             logs.get(k.library_path().name, ""))
     log(f"  built {len(logs)} kernel sources in parallel in {time.time() - t0:.1f} s")
@@ -1352,6 +1353,23 @@ def wide_phases(dev, tag: str, args, kernels: dict, dx_init) -> None:
             k6_err["chol_factor_solve_blocked"] = max(k6_err["chol_factor_solve_blocked"],
                                                       mismatch(Lb, Lp), mismatch(xb, xp))
             k6_err["chol_solve_blocked"] = max(k6_err["chol_solve_blocked"], mismatch(xsb, xp))
+    # seeded SPD systems at the edges of the switch's domain (n_p >= 32: n 25
+    # to 128), one lane, a ragged few and a full batch
+    for n in (25, 32, 33, 64, 65, 128):
+        for B in (1, 3, DMS_BATCH):
+            M, b = spd_systems(dev, n, B, seed=100 * n + B)
+            Lb, xb = ck.chol_factor_solve_blocked(M, b)
+            xsb = ck.chol_solve_blocked(M, b)
+            L, x = ck.chol_factor_solve(M, b)
+            xs = ck.chol_solve(M, b)
+            Lp, xp = ck.chol_factor_solve(M, b, plain=True)
+            torch.cuda.synchronize()
+            require(torch_equal(Lb, L) and torch_equal(xb, x) and torch_equal(Lb, Lp)
+                    and torch_equal(xb, xp) and torch_equal(xsb, xs),
+                    f"K6a = K5a = plain (L and x) and K6b = K5b bit for bit, seeded n={n} B={B}")
+            k6_err["chol_factor_solve_blocked"] = max(k6_err["chol_factor_solve_blocked"],
+                                                      mismatch(Lb, Lp), mismatch(xb, xp))
+            k6_err["chol_solve_blocked"] = max(k6_err["chol_solve_blocked"], mismatch(xsb, xp))
     for k, v in k6_err.items():
         kernels[k]["max_abs_err"] = v
     if args.stop_after < 18:
@@ -1545,20 +1563,7 @@ def wide_phases(dev, tag: str, args, kernels: dict, dx_init) -> None:
             t[f"k2w_{fam}_{it}_plain"] = cuda_ms(lambda: mehrotra_h_plain(G, H, g, h, it),
                                                  reps=2, warmup=1)
         t[f"k2w_{fam}_2"] = cuda_ms(lambda: mehrotra_h(G, H, g, h, 2, warm=st, plan=pl), reps=5)
-    M, b = cases[f"n={ds.nz} B={DMS_BATCH}"][1]
-    lib = lambda: torch.cholesky_solve(b[..., None], torch.linalg.cholesky_ex(M)[0])
-    chol_t = {"chol_factor_solve_blocked": (lambda: ck.chol_factor_solve_blocked(M, b),
-                                            lambda: ck.chol_factor_solve_blocked(M, b, plain=True)),
-              "chol_solve_blocked": (lambda: ck.chol_solve_blocked(M, b),
-                                     lambda: ck.chol_solve_blocked(M, b, plain=True))}
-    t["k5a_dms"] = cuda_ms(lambda: ck.chol_factor_solve(M, b))
-    t["k5b_dms"] = cuda_ms(lambda: ck.chol_solve(M, b))
-    for name, (fk, fp) in chol_t.items():
-        ms, pms, lms = cuda_ms(fk), cuda_ms(fp, reps=3), cuda_ms(lib, reps=5)
-        bd, bd_by = bound_ms(*chol_work(name.replace("_blocked", ""), DMS_BATCH, ds.nz))
-        kernels[name].update(ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bd, bound_by=bd_by)
-        log(f"  time {name} n={ds.nz} B={DMS_BATCH}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-            f"library {lms:.4f} ms, bound {bd:.4f} ms ({bd_by}) {tag}")
+    k6_report(dev, tag, kernels, [(label, *cases[label][1]) for label in cases])
     for name, (sk, sp) in dsolvers.items():
         t[f"dms_{name.replace(' ', '_')}_solve"] = cuda_ms(lambda: sk(ddx, dwin, dz0), reps=3,
                                                            warmup=1)
@@ -1738,6 +1743,74 @@ def chol_report(dev, tag: str, kernels: dict, runs) -> None:
             rows[name]["lanes_an_sm"][label] = resident
             log(f"  time {name} {label}: {ms:.4f} ms (device); {lanes} lanes a block, "
                 f"{blocks} blocks, {smem} B shared, {resident} lanes an SM {tag}")
+    for name, row in rows.items():
+        kernels[name].update(row)
+
+
+def spd_systems(dev, n: int, B: int, seed: int):
+    """A seeded batch of SPD systems (M, b), equilibrated as the IPM's are
+    (unit diagonal)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn(B, n, n, device=dev, generator=gen)
+    M = A @ A.transpose(1, 2) + n * torch.eye(n, device=dev)
+    dg = torch.rsqrt(torch.diagonal(M, dim1=1, dim2=2))
+    return ((M * dg[:, :, None] * dg[:, None, :]).contiguous(),
+            torch.randn(B, n, device=dev, generator=gen))
+
+
+def k6_tool():
+    """tools/k6_compare.py: K6's shared memory and lanes an SM as the kernel
+    computes them."""
+    split_tool()
+    import k6_compare
+
+    return k6_compare
+
+
+def k6_report(dev, tag: str, kernels: dict, runs) -> None:
+    """Phase 23's K6 report: K6a's and K6b's device time (graph replay) on
+    each (label, M, b) of `runs` (the last IPM iteration's systems: the DMS
+    flagship's n=101 at batch 1024 and the uncut N40's n=41 at 2048) beside
+    K5a's and K5b's (the same function) and the host-clocked reading
+    (ms_host), with the warps a lane and lanes a block the host picks, the
+    lanes an SM the kernel holds, and the kernel's shared memory held to the
+    host's; at the first, the plain version, the library pair and the
+    bound."""
+    import torch
+
+    from lbmpc_tpu_torch.ops import chol_kernel as ck
+    from lbmpc_tpu_torch.ops.qp_kernel import sm_count
+
+    calls = {"chol_factor_solve_blocked": ("chol_factor_solve", ck.chol_factor_solve_blocked,
+                                           ck.chol_factor_solve),
+             "chol_solve_blocked": ("chol_solve", ck.chol_solve_blocked, ck.chol_solve)}
+    keys = ("ms_by_batch", "ms_host_by_batch", "k5_ms_by_batch", "bound_ms_by_batch",
+            "warps_a_lane", "lanes_a_block", "lanes_an_sm")
+    rows = {name: {k: {} for k in keys} for name in calls}
+    for i, (label, M, b) in enumerate(runs):
+        B, n = b.shape
+        warps, lanes, blocks, smem = ck.blocked_launch(n, B, sms=sm_count(dev))
+        for kind, (name, (k5name, k6, k5)) in enumerate(calls.items()):
+            c_smem, resident = k6_tool().c_shape(ck.FACTOR_SOLVE_BLOCKED, kind, n, warps, lanes)
+            require(c_smem == smem, f"{name}'s shared memory at {label} is the host's "
+                    f"blocked_smem_bytes ({smem} B)")
+            ms, ms5 = graph_ms(lambda: k6(M, b)), graph_ms(lambda: k5(M, b))
+            host = cuda_ms(lambda: k6(M, b))
+            bd, bd_by = bound_ms(*chol_work(k5name, B, n))
+            for k, val in zip(keys, (ms, host, ms5, bd, warps, lanes, resident)):
+                rows[name][k][label] = val
+            log(f"  time {name} {label}: {ms:.4f} ms (device; host-clocked {host:.4f}), "
+                f"{k5name} {ms5:.4f} ms, bound {bd:.4f} ms ({bd_by}); {warps} warps a lane, "
+                f"{lanes} lanes a block, {blocks} blocks, {smem} B shared, {resident} lanes "
+                f"an SM {tag}")
+            if i == 0:
+                lib = lambda: torch.cholesky_solve(b[..., None], torch.linalg.cholesky_ex(M)[0])
+                pms, lms = cuda_ms(lambda: k6(M, b, plain=True), reps=3), cuda_ms(lib, reps=5)
+                kernels[name].update(ms=ms, ms_host=host, plain_ms=pms, library_ms=lms,
+                                     bound_ms=bd, bound_by=bd_by)
+                log(f"  time {name} {label}: plain {pms:.4f} ms, library {lms:.4f} ms {tag}")
     for name, row in rows.items():
         kernels[name].update(row)
 
@@ -2313,7 +2386,8 @@ def finish(card: str, kind: str, kernels: dict, args) -> int:
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
         extra = ("ms_host", "max_abs_err_held", "nan_lanes", "far_from_float64", "ms_8_iters",
                  "plain_ms_8_iters", "bound_ms_8_iters", "bound_ms_dense", "ms_2_iters",
-                 "ms_by_batch", "lanes_a_block", "lanes_an_sm", "ptxas")
+                 "ms_by_batch", "ms_host_by_batch", "k5_ms_by_batch", "bound_ms_by_batch",
+                 "warps_a_lane", "lanes_a_block", "lanes_an_sm", "ptxas")
         rows = [{**{k: v.get(k) for k in keys}, **{k: v[k] for k in extra if k in v}}
                 for v in kernels.values()]
         require(all(r[k] is not None for r in rows for k in keys if k != "library_ms"),

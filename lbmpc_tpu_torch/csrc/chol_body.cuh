@@ -1,6 +1,6 @@
 // chol_body.cuh — block-wide Cholesky factorizations and solves of one
-// lane's SPD matrix in shared memory, shared by chol.cu (K5 above n = 32),
-// chol_blocked.cu (K6) and mehrotra_wide.cuh (K2w, K3w).
+// lane's SPD matrix in shared memory, shared by chol.cu (K5 above n = 32)
+// and mehrotra_wide.cuh (K2w, K3w).
 //
 // The factorization is the TPU kernel's column recurrence (pallas_chol.py
 // _chol_cols): column j is acc = M[:, j] - sum_{k<j} L[j, k] L[:, k] with the
@@ -11,23 +11,18 @@
 // in the same order, with every product, difference, quotient and square
 // root rounded on its own (__fmul_rn, __fsub_rn, __fdiv_rn, __fsqrt_rn: no
 // fused multiply-add), so they agree with each other, with chol.cu's warp
-// form (n <= 32) and with the plain version ops/chol_kernel.cholesky_floor
-// bit for bit:
+// form (n <= 32), with chol_blocked.cu (K6) and with the plain version
+// ops/chol_kernel.cholesky_floor bit for bit:
 //   factor_cols: right-looking by columns; after column j is final, every
 //     entry (i, k) of the trailing lower triangle subtracts L[i, j] L[k, j];
-//     two block barriers a column (lane's kBlocked = false);
-//   factor_blocked (K6, pallas_chol.py _chol_blocked_inplace): slabs of
-//     kSlab = 8 columns. Warp 0 factors the slab's panel (its 8 columns, all
-//     rows below the slab's first), subtracting within the panel column by
-//     column; then the block updates the trailing matrix once, each entry
-//     subtracting the slab's 8 terms in k order. Two block barriers a slab;
+//     two block barriers a column (the reference form; no kernel runs it);
 //   factor_panel (K2w, K5 above n = 32): panels of kPanel = 8 columns, a row
 //     of the panel a thread in registers, two barriers a column; then the
 //     trailing update once a panel, a warp a row, from registers.
 // The solves are the TPU kernel's column sweep (_tri_lower) forward, then
 // the same sweep on L' (row j of L) back: `solve` one block barrier a
-// column (K6), `solve_blocked` blocks of kSolveBlock columns, two barriers
-// a block (K2w, K5 above n = 32).
+// column (the reference form), `solve_blocked` blocks of kSolveBlock columns, two barriers a
+// block (K2w, K5 above n = 32).
 
 #pragma once
 
@@ -36,7 +31,6 @@
 namespace chol {
 
 constexpr int kNMax = 128;
-constexpr int kSlab = 8;
 constexpr int kPanel = 8;            // factor_panel's columns a panel
 constexpr int kSolveBlock = 32;      // solve_blocked's columns a block
 constexpr int kBlockThreads = 256;   // the block factor_panel and solve_blocked run on
@@ -55,8 +49,9 @@ __device__ __forceinline__ float pivot(float acc) {
   return __fsqrt_rn(acc < kPivotFloor ? kPivotFloor : acc);
 }
 
-// K5's factorization: A (n x n) in place, col (n floats) scratch. Every
-// thread of the block calls it; entry on a synchronised A.
+// The column form, the order every other form reproduces: A (n x n) in
+// place, col (n floats) scratch. Every thread of the block calls it; entry on
+// a synchronised A.
 __device__ __forceinline__ void factor_cols(float* A, float* col, int n) {
   const int tid = threadIdx.x, T = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, nwarps = T >> 5;
@@ -70,46 +65,6 @@ __device__ __forceinline__ void factor_cols(float* A, float* col, int n) {
       float* row = A + i * n;
       for (int k = j + 1 + lane; k <= i; k += 32)
         row[k] = sub_prod(row[k], lij, col[k]);
-    }
-    __syncthreads();
-  }
-}
-
-// K6's factorization: A (n x n) in place; the same terms in the same order
-// as factor_cols. Every thread of the block calls it; entry on a
-// synchronised A.
-__device__ __forceinline__ void factor_blocked(float* A, int n) {
-  const int tid = threadIdx.x, T = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int j0 = 0; j0 < n; j0 += kSlab) {
-    const int j1 = min(j0 + kSlab, n);
-    if (warp == 0) {
-      // the panel: rows i >= j, lane-strided; column j's pivot row j is
-      // final once the previous column's updates are (__syncwarp)
-      for (int j = j0; j < j1; ++j) {
-        const float djj = pivot(A[j * n + j]);
-        __syncwarp();
-        for (int i = j + lane; i < n; i += 32) A[i * n + j] = __fdiv_rn(A[i * n + j], djj);
-        __syncwarp();
-        for (int i = j + 1 + lane; i < n; i += 32) {
-          const float lij = A[i * n + j];
-          float* row = A + i * n;
-          for (int k = j + 1; k < j1 && k <= i; ++k)
-            row[k] = sub_prod(row[k], lij, A[k * n + j]);
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-    // the trailing lower triangle: rows i >= j1, columns j1..i; each entry
-    // subtracts L[i, j] L[k, j] for j = j0..j1-1 in that order
-    const int m = n - j1;
-    for (int e = tid; e < m * m; e += T) {
-      const int i = j1 + e / m, k = j1 + e % m;
-      if (k > i) continue;
-      float a = A[i * n + k];
-      for (int j = j0; j < j1; ++j) a = sub_prod(a, A[i * n + j], A[k * n + j]);
-      A[i * n + k] = a;
     }
     __syncthreads();
   }
@@ -139,9 +94,8 @@ __device__ __forceinline__ void solve(const float* A, float* v, float* y, int n)
 
 // K2w's and K5's (n > 32) factorization, on a block of kBlockThreads: A's
 // lower triangle (n x n, row-major) in place, with the pivot floor: L[i][j] =
-// acc_i / sqrt(max(acc_j, 1e-30)) (NaN passes), K6's factor_blocked term for
-// term (its 8-column slabs are these panels). Thread t holds panel row j0 + t
-// in registers; for column j the pivot and the panel rows' L[k][j] go
+// acc_i / sqrt(max(acc_j, 1e-30)) (NaN passes), factor_cols term for term.
+// Thread t holds panel row j0 + t in registers; for column j the pivot and the panel rows' L[k][j] go
 // through `panel` (2 kPanel floats of shared memory); then the trailing
 // lower triangle subtracts the panel's terms in column order, a warp a row.
 // Entry synchronised; exit too.
@@ -271,42 +225,6 @@ __device__ __forceinline__ void solve_blocked(const float* A, float* v, int n) {
     }
     __syncthreads();
   }
-}
-
-// One lane of K6: stage M (or L) and b, factor (kFactor; blocked or by
-// columns), store L (kStore) with zeros above the diagonal, solve, write x.
-// Shared memory: n*n + 3n floats.
-template <bool kFactor, bool kStore, bool kBlocked>
-__device__ __forceinline__ void lane(const float* __restrict__ Min, const float* __restrict__ b,
-                                     float* __restrict__ L_out, float* __restrict__ x_out,
-                                     int n, float* smem) {
-  float* A = smem;             // n * n: M, factored in place into L
-  float* col = A + n * n;      // n: column j of L
-  float* v = col + n;          // n: the running right-hand side
-  float* y = v + n;            // n: the forward solve's result
-  const int tid = threadIdx.x, T = blockDim.x;
-  const size_t lane_off = (size_t)blockIdx.x * n * n;
-
-  for (int e = tid; e < n * n; e += T) A[e] = Min[lane_off + e];
-  for (int i = tid; i < n; i += T) v[i] = b[(size_t)blockIdx.x * n + i];
-  __syncthreads();
-
-  if (kFactor) {
-    if (kBlocked) factor_blocked(A, n);
-    else factor_cols(A, col, n);
-    if (kStore) {
-      for (int e = tid; e < n * n; e += T) {
-        const int i = e / n, k = e - i * n;
-        L_out[lane_off + e] = k <= i ? A[e] : 0.0f;
-      }
-    }
-  }
-  solve(A, v, y, n);
-  for (int i = tid; i < n; i += T) x_out[(size_t)blockIdx.x * n + i] = v[i];
-}
-
-__host__ __device__ constexpr size_t lane_shared_bytes(int n) {
-  return ((size_t)n * n + 3 * n) * sizeof(float);
 }
 
 }  // namespace chol

@@ -45,11 +45,11 @@
 // kPanel columns lives in registers, a row a thread, two block barriers a
 // column (the pivot and the panel rows' L broadcast through shared memory),
 // then the trailing matrix is updated once, a warp a row, each lane holding
-// its columns' panel entries in registers; every entry gets K6's terms in
-// K6's order and rounding (chol_body.cuh factor_blocked). The solves go by
-// blocks of 32 columns: warp 0 solves the diagonal block with shuffles, the
-// block subtracts it from the rest as one matrix-vector product — two
-// barriers a block instead of one a column — with chol::solve's terms,
+// its columns' panel entries in registers; every entry gets the column
+// form's terms in its order and rounding (chol_body.cuh factor_cols). The
+// solves go by blocks of 32 columns: warp 0 solves the diagonal block with
+// shuffles, the block subtracts it from the rest as one matrix-vector
+// product — two barriers a block instead of one a column — with chol::solve's terms,
 // order and rounding. Both are chol_body.cuh's factor_panel and
 // solve_blocked, which K5 runs above n = 32 too.
 // One thread per constraint row keeps that row's s, z, d, rp and the

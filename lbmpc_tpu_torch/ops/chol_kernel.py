@@ -2,7 +2,9 @@
 matrices. K5 (csrc/chol.cu): K5a factors and solves and stores L, K5b
 factors and solves without storing L, K5c re-solves with a stored L. K6
 (csrc/chol_blocked.cu): K6a and K6b compute K5a's and K5b's function by a
-slab-blocked factorization, bit for bit the same.
+factorization in slabs of 8 columns (a slab's panel in one warp's
+registers, the next slab looked ahead beside the trailing update, the
+forward sweep inside the panels), bit for bit the same.
 
 Port of lbmpc_tpu/ops/pallas_chol.py (chol_factor_solve, chol_solve,
 chol_resolve); LBMPC_CHOL_BLOCKED=1 selects the blocked kernels where the
@@ -21,7 +23,9 @@ n = 128, so storing L always fits and only LBMPC_CHOL_STORE=0 turns it off.
 
 K5 runs one warp a lane and several lanes a block up to n = 32, one
 256-thread block a lane above (csrc/chol.cu); `chol_launch` is the host's
-choice of that shape, which the wrappers pass to the kernel.
+choice of that shape, which the wrappers pass to the kernel. K6 runs a lane
+on 1, 2 or 4 warps and several lanes a block (csrc/chol_blocked.cu);
+`blocked_launch` is the host's choice of both.
 """
 
 from __future__ import annotations
@@ -31,15 +35,15 @@ import os
 import torch
 
 from lbmpc_tpu_torch.ops._cuda import I, P, CudaKernel, check, ptr
-from lbmpc_tpu_torch.ops.qp_kernel import H100_SMS, sm_count
+from lbmpc_tpu_torch.ops.qp_kernel import H100_SMS, lanes_a_block, sm_count
 
 FACTOR_SOLVE = CudaKernel("chol_factor_solve", [P] * 4 + [I, I, I, P], source="chol")
 SOLVE = CudaKernel("chol_solve", [P] * 3 + [I, I, I, P], source="chol")
 RESOLVE = CudaKernel("chol_resolve", [P] * 3 + [I, I, I, P], source="chol")
 KERNELS = (FACTOR_SOLVE, SOLVE, RESOLVE)
-FACTOR_SOLVE_BLOCKED = CudaKernel("chol_factor_solve_blocked", [P] * 4 + [I, I, P],
+FACTOR_SOLVE_BLOCKED = CudaKernel("chol_factor_solve_blocked", [P] * 4 + [I] * 4 + [P],
                                   source="chol_blocked")
-SOLVE_BLOCKED = CudaKernel("chol_solve_blocked", [P] * 3 + [I, I, P], source="chol_blocked")
+SOLVE_BLOCKED = CudaKernel("chol_solve_blocked", [P] * 3 + [I] * 4 + [P], source="chol_blocked")
 BLOCKED_KERNELS = (FACTOR_SOLVE_BLOCKED, SOLVE_BLOCKED)
 N_MAX = 128          # csrc/chol_body.cuh kNMax
 PIVOT_FLOOR = 1e-30  # sqrt(max(acc_jj, 1e-30)), pallas_chol.py:417
@@ -47,6 +51,9 @@ PIVOT_FLOOR = 1e-30  # sqrt(max(acc_jj, 1e-30)), pallas_chol.py:417
 # MAX_LANES lanes a block; above it a block of BLOCK_THREADS a lane, with the
 # factorization's panel of PANEL columns (csrc/chol_body.cuh)
 WARP_N_MAX, MAX_LANES, BLOCK_THREADS, PANEL = 32, 8, 256, 8
+# K6's launch shape (csrc/chol_blocked.cu): at most BLOCKED_MAX_LANES lanes
+# and BLOCKED_MAX_THREADS threads a block; slabs of SLAB columns
+BLOCKED_MAX_LANES, BLOCKED_MAX_THREADS, SLAB = 4, 512, 8
 
 
 def chol_smem_bytes(n: int, lanes: int) -> int:
@@ -72,6 +79,41 @@ def chol_launch(n: int, B: int, sms: int = H100_SMS) -> tuple:
     while lanes > 1 and -(-B // lanes) < sms:
         lanes //= 2
     return lanes, -(-B // lanes), chol_smem_bytes(n, lanes)
+
+
+def blocked_smem_bytes(n: int, lanes: int) -> int:
+    """K6's dynamic shared memory for a block of `lanes` lanes
+    (csrc/chol_blocked.cu lane_floats): a lane's lower triangle of L, row i
+    padded to a multiple of SLAB floats (rows 8q..8q+7 hold 8(q+1) each),
+    and two vectors of n floats rounded up to 4."""
+    q, t = divmod(n, SLAB)
+    return 4 * lanes * (SLAB * (q + 1) * (4 * q + t) + 2 * (-(-n // 4) * 4))
+
+
+def blocked_warps(n: int) -> int:
+    """K6's warps a lane at n: the panel warp factors each slab's panel and
+    runs the back sweep, the others subtract the look-ahead terms from a
+    slab's rows past its first 32 and update the trailing triangle, whose
+    work grows as n^3 — one warp up to n = 32, two up to 64, four above."""
+    return 1 if n <= 32 else 2 if n <= 64 else 4
+
+
+def blocked_launch(n: int, B: int, sms: int = H100_SMS) -> tuple:
+    """K6's launch shape for B lanes of n x n systems on a card of `sms`
+    SMs: (warps a lane, lanes a block, blocks, the block's shared memory in
+    bytes). A block holds the most lanes, a power of two up to
+    BLOCKED_MAX_LANES within BLOCKED_MAX_THREADS threads, that still give
+    every SM a block (up to `sms` lanes each has a block of its own) and fit
+    the opt-in shared memory (qp_kernel.lanes_a_block). Raises where the
+    kernels do not take the shape."""
+    if not (1 <= n <= N_MAX and B >= 0):
+        raise ValueError(f"the chol kernels take 1 <= n <= {N_MAX} and a batch B >= 0 "
+                         f"(got n={n}, B={B})")
+    warps = blocked_warps(n)
+    most = min(BLOCKED_MAX_LANES, BLOCKED_MAX_THREADS // (32 * warps))
+    lanes, blocks, smem = lanes_a_block(B, most, sms, lambda k: blocked_smem_bytes(n, k),
+                                        f"K6 at n={n}")
+    return warps, lanes, blocks, smem
 
 
 def factor_store_feasible() -> bool:
@@ -165,6 +207,11 @@ def _lanes(dev, Bsz: int, n: int) -> I:
     return I(chol_launch(n, Bsz, sms=sm_count(dev))[0])
 
 
+def _blocked_shape(dev, Bsz: int, n: int) -> tuple:
+    warps, lanes = blocked_launch(n, Bsz, sms=sm_count(dev))[:2]
+    return I(warps), I(lanes)
+
+
 def chol_factor_solve(M, b, plain: bool = False):
     """Factor SPD M (B, n, n) and solve M x = b (B, n): (L, x)."""
     dev = _device_of(M, plain)
@@ -209,7 +256,8 @@ def chol_factor_solve_blocked(M, b, plain: bool = False):
     Bsz, n = _checked(M, b)
     L = torch.empty_like(M)
     x = torch.empty_like(b)
-    FACTOR_SOLVE_BLOCKED.launch(dev, ptr(M), ptr(b), ptr(L), ptr(x), I(Bsz), I(n))
+    FACTOR_SOLVE_BLOCKED.launch(dev, ptr(M), ptr(b), ptr(L), ptr(x), I(Bsz), I(n),
+                                *_blocked_shape(dev, Bsz, n))
     return L, x
 
 
@@ -221,5 +269,5 @@ def chol_solve_blocked(M, b, plain: bool = False):
         return chol_solve_plain(M, b)
     Bsz, n = _checked(M, b)
     x = torch.empty_like(b)
-    SOLVE_BLOCKED.launch(dev, ptr(M), ptr(b), ptr(x), I(Bsz), I(n))
+    SOLVE_BLOCKED.launch(dev, ptr(M), ptr(b), ptr(x), I(Bsz), I(n), *_blocked_shape(dev, Bsz, n))
     return x

@@ -312,6 +312,110 @@ def test_chol_blocked_kernels_equal_k5(cuda, n, B):
     assert torch.equal(Lb, Lp) and torch.equal(xb, xp)
 
 
+def _spd_on(cuda, n, B, seed):
+    """Seeded SPD systems, equilibrated as the IPM's are (unit diagonal)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    A = torch.randn(B, n, n, device=cuda, generator=gen)
+    M = A @ A.transpose(1, 2) + n * torch.eye(n, device=cuda)
+    dg = torch.rsqrt(torch.diagonal(M, dim1=1, dim2=2))
+    return ((M * dg[:, :, None] * dg[:, None, :]).contiguous(),
+            torch.randn(B, n, device=cuda, generator=gen))
+
+
+def _bits(a, b):
+    """Bit for bit, a NaN equal to a NaN in the same place."""
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("B", [1, 3, 40, 1024])
+@pytest.mark.parametrize("n", [25, 32, 33, 41, 64, 65, 101, 127, 128])
+def test_chol_blocked_kernels_equal_k5_and_plain_over_the_domain(cuda, n, B):
+    """K6a equals K5a and the plain version (L and x) and K6b equals K5b bit
+    for bit over the switch's domain (n_p >= 32: n 25..128) at one lane, a
+    ragged few and full batches, one launch a call at the host's shape."""
+    M, b = _spd_on(cuda, n, B, 7 * n + B)
+    n0 = [k.launches for k in chol_kernel.BLOCKED_KERNELS]
+    Lb, xb = chol_kernel.chol_factor_solve_blocked(M, b)
+    xsb = chol_kernel.chol_solve_blocked(M, b)
+    assert [k.launches - c for k, c in zip(chol_kernel.BLOCKED_KERNELS, n0)] == [1, 1]
+    L, x = chol_kernel.chol_factor_solve(M, b)
+    xs = chol_kernel.chol_solve(M, b)
+    Lp, xp = chol_kernel.chol_factor_solve(M, b, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(Lb, L) and torch.equal(xb, x) and torch.equal(xsb, xs)
+    assert torch.equal(Lb, Lp) and torch.equal(xb, xp)
+    assert torch.equal(torch.triu(Lb, diagonal=1), torch.zeros_like(Lb))
+
+
+@pytest.mark.parametrize("n", [33, 101])
+def test_chol_blocked_kernels_give_a_lane_the_same_bits_anywhere(cuda, n):
+    """A lane's L and x do not depend on where it sits in the batch, on how
+    many lanes share its block, or on B: lane 0's system alone, and placed
+    at lanes 1, 5, 31 and B - 1 of B = 40 and 1024."""
+    M0, b0 = _spd_on(cuda, n, 1, 3 * n)
+    L1, x1 = chol_kernel.chol_factor_solve_blocked(M0, b0)
+    xs1 = chol_kernel.chol_solve_blocked(M0, b0)
+    for B in (40, 1024):
+        M, b = _spd_on(cuda, n, B, 5 * n + B)
+        at = [1, 5, 31, B - 1]
+        M[at], b[at] = M0[0], b0[0]
+        L, x = chol_kernel.chol_factor_solve_blocked(M, b)
+        xs = chol_kernel.chol_solve_blocked(M, b)
+        torch.cuda.synchronize()
+        for i in at:
+            assert torch.equal(L[i], L1[0]) and torch.equal(x[i], x1[0])
+            assert torch.equal(xs[i], xs1[0])
+
+
+@pytest.mark.parametrize("n", [25, 41, 101, 128])
+def test_chol_blocked_kernels_keep_a_nan_lane_and_a_floored_lane(cuda, n):
+    """A NaN below the diagonal of lane 2 and a lane (5) whose pivots all hit
+    the floor: K6 matches K5 and the plain version lane by lane (NaN where
+    they have NaN), and every other lane keeps its bits from the batch
+    without them."""
+    M, b = _spd_on(cuda, n, 8, 11 * n)
+    L0, x0 = chol_kernel.chol_factor_solve_blocked(M, b)
+    M[2, n - 1, n // 2] = float("nan")
+    M[5] = -M[5]
+    Lb, xb = chol_kernel.chol_factor_solve_blocked(M, b)
+    xsb = chol_kernel.chol_solve_blocked(M, b)
+    L, x = chol_kernel.chol_factor_solve(M, b)
+    xs = chol_kernel.chol_solve(M, b)
+    Lp, xp = chol_kernel.chol_factor_solve(M, b, plain=True)
+    torch.cuda.synchronize()
+    assert _bits(Lb, L) and _bits(xb, x) and _bits(xsb, xs)
+    assert _bits(Lb, Lp) and _bits(xb, xp)
+    assert bool(torch.isnan(xb[2]).any())
+    keep = [i for i in range(8) if i not in (2, 5)]
+    assert torch.equal(Lb[keep], L0[keep]) and torch.equal(xb[keep], x0[keep])
+
+
+def test_chol_blocked_shared_memory_is_the_hosts(cuda):
+    """The block's shared memory that chol_kernel.blocked_launch sizes the
+    launch by is the one K6 carves, for every shape it takes (-1 where it
+    takes none), and the lanes an SM hold at least one block of the
+    host's shape."""
+    import ctypes
+
+    from lbmpc_tpu_torch.ops.chol_kernel import (BLOCKED_MAX_LANES, BLOCKED_MAX_THREADS,
+                                                 blocked_launch, blocked_smem_bytes)
+
+    k = chol_kernel.FACTOR_SOLVE_BLOCKED
+    k.fn()
+    lib = ctypes.CDLL(str(k.library_path()))
+    smem, res = lib.chol_blocked_smem_bytes, lib.chol_blocked_resident_lanes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    res.argtypes, res.restype = [ctypes.c_int] * 4, ctypes.c_int
+    for n in range(1, 129):
+        for warps in (1, 2, 4, 8):
+            for lanes in range(1, 10):
+                ok = lanes <= BLOCKED_MAX_LANES and warps * lanes * 32 <= BLOCKED_MAX_THREADS
+                assert smem(n, warps, lanes) == (blocked_smem_bytes(n, lanes) if ok else -1)
+        for B in (1, 1024):
+            warps, lanes = blocked_launch(n, B)[:2]
+            assert res(0, n, warps, lanes) >= lanes and res(1, n, warps, lanes) >= lanes
+
+
 @pytest.mark.parametrize("family", ["casadi", "fmincon"])
 def test_gn_wide_kernel_matches_plain(cuda, wide, family):
     """K1w at the DMS and N40 shapes: e, H, g within 1e-5 max|H| of the
