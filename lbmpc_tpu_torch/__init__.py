@@ -1,13 +1,18 @@
 """lbmpc_tpu_torch — the PyTorch/CUDA port of the learning-based MPC engine.
 
-A second package beside the JAX reference (`lbmpc_tpu`), covering the fused
-LBMPC SQP solve and the warm-chain fleet closed loop:
+A second package beside the JAX reference (`lbmpc_tpu`), covering the LMPC,
+LBMPC and NMPC controllers, the fused LBMPC SQP solve and the warm-chain
+fleet closed loop:
 
 - ``config``, ``synthesis``, ``sets``, ``controllers.condensed`` — host-side
   numpy setup (presets, matOCP synthesis, terminal sets, condensed QP);
-- ``models.mgcm`` — the plant ODE and its batched integrators in torch;
+- ``models`` — the plant ODE and its batched integrators in torch
+  (``mgcm``), the implicit collocation step (``collocation``) and the DLTI
+  containers (``linear``, numpy);
 - ``oracle`` — the Nadaraya-Watson window and estimate in torch;
 - ``controllers.lbmpc`` / ``controllers.sqp_fused`` — the Gauss-Newton SQP;
+- ``controllers.nmpc`` — the NMPC (tracking and regulation) on the SQP with
+  nonlinear constraints;
 - ``ops`` — the two hand-written CUDA kernels (GN phase, Mehrotra QP) with
   their plain PyTorch versions;
 - ``runtime`` — the batched closed loop and the fleet episode builder;

@@ -15,6 +15,7 @@ import torch
 from lbmpc_tpu_torch.controllers.condensed import CondensedQP
 from lbmpc_tpu_torch.controllers.lbmpc import LBMPCWeights
 from lbmpc_tpu_torch.device import resolve_device
+from lbmpc_tpu_torch.models.linear import DLTIModel
 from lbmpc_tpu_torch.oracle import DataWindow
 from lbmpc_tpu_torch.sets.terminal import ConstraintSet
 from lbmpc_tpu_torch.synthesis import OCPMatrices
@@ -48,6 +49,9 @@ def from_reference(obj, device=None, dtype=None):
         return LBMPCWeights(Lq=_np(obj.Lq), Lr=_np(obj.Lr), Lp=_np(obj.Lp),
                             sqrtT=float(obj.sqrtT), LAMBDA=_np(obj.LAMBDA),
                             PSI=_np(obj.PSI))
+    if _has(obj, "A", "B", "C", "D", "ts"):
+        return DLTIModel(A=_np(obj.A), B=_np(obj.B), C=_np(obj.C), D=_np(obj.D),
+                         ts=float(obj.ts))
     if _has(obj, "X", "Y", "valid", "count"):
         dev = resolve_device(device)
         X = np.asarray(obj.X)

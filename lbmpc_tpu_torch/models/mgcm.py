@@ -19,8 +19,8 @@ import functools
 import numpy as np
 import torch
 
-from lbmpc_tpu_torch.config import (BETA2, MG2_EQ_U, MG2_EQ_X, MGCM_EQ_X,
-                                    TS, TWO_ZETA_WN, WN2, X2_C)
+from lbmpc_tpu_torch.config import (BETA2, MG2_EQ_U, MG2_EQ_X, MGCM_EQ_U,
+                                    MGCM_EQ_X, TS, TWO_ZETA_WN, WN2, X2_C)
 
 
 def _input(u, x: torch.Tensor) -> torch.Tensor:
@@ -44,6 +44,36 @@ def mgcm_ode(x: torch.Tensor, u) -> torch.Tensor:
     f3 = x4
     f4 = -WN2 * x3 - TWO_ZETA_WN * x4 + WN2 * u
     return torch.stack([f1, f2, f3, f4], dim=-1)
+
+
+def mgcm_ode_jac(x: torch.Tensor) -> torch.Tensor:
+    """Closed-form Jacobian of mgcm_ode in (x, u): (..., 4, 5), the last
+    column d f / d u. Built from differentiable torch operations, so forward
+    derivatives of a Newton solve that uses it exist (the NMPC's collocation
+    prediction differentiates through its Newton iterations)."""
+    x1, x2, x3 = x[..., 0], x[..., 1], x[..., 2]
+    r = torch.sqrt(x2)
+    # the three entries that depend on x; the rest is constant
+    v = torch.stack([1.5 - 1.5 * x1**2, -x3 / (2.0 * r) / BETA2, -r / BETA2], dim=-1)
+    base, place = _jac_consts(x.dtype, x.device)
+    return base + (v @ place).unflatten(-1, (4, 5))
+
+
+@functools.lru_cache(maxsize=None)
+def _jac_consts(dtype, device):
+    """mgcm_ode_jac's constant part and placement, made once (a CUDA graph
+    may not copy them from the host while it captures)."""
+    return (torch.tensor(_JAC_BASE, dtype=dtype, device=device),
+            torch.tensor(_JAC_PLACE, dtype=dtype, device=device))
+
+
+_JAC_BASE = ((0.0, -1.0, 0.0, 0.0, 0.0),
+             (1.0 / BETA2, 0.0, 0.0, 0.0, 0.0),
+             (0.0, 0.0, 0.0, 1.0, 0.0),
+             (0.0, 0.0, -WN2, -TWO_ZETA_WN, WN2))
+# rows of v placed at (0, 0), (1, 1) and (1, 2)
+_JAC_PLACE = tuple(tuple(1.0 if k == e else 0.0 for k in range(20))
+                   for e in (0, 6, 7))
 
 
 def mg2_ode(x: torch.Tensor, u) -> torch.Tensor:
@@ -157,6 +187,14 @@ def mgcm_dlti(ts: float = TS) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.nd
     Ad = scipy.linalg.expm(A * ts)
     Bd = np.linalg.solve(A, (Ad - np.eye(4)) @ B)
     return Ad, Bd, np.eye(4), np.zeros((4, 1))
+
+
+def nominal_step(x: torch.Tensor, u: torch.Tensor, Ad: torch.Tensor,
+                 Bd: torch.Tensor) -> torch.Tensor:
+    """One step of the nominal DLTI model x+ = Ad x + Bd u (delta
+    coordinates; ref: models/nominalModel.m:28). Batched: x (..., n), u
+    (..., m)."""
+    return x @ Ad.T + u @ Bd.T
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,6 +10,12 @@ pivot at or below 0, which late float32 IPM iterations can produce), that
 lane is factored again by the reference's column loop with its floor, so it
 carries on as the reference does. Every function is batched over the
 leading axes: (..., n, n) matrices, (..., n) vectors.
+
+Looking for such a lane reads one flag from the device. A caller that
+captures its solve in a CUDA graph, where no read may happen, passes a
+`failed` flag tensor instead: the lanes the library gave up on are marked
+there and not refactored, and the caller redoes the solve without the graph
+when any is marked (controllers/nmpc).
 """
 
 from __future__ import annotations
@@ -34,11 +40,16 @@ def chol_columns(M: torch.Tensor) -> torch.Tensor:
     return L
 
 
-def chol_batched(M: torch.Tensor) -> torch.Tensor:
+def chol_batched(M: torch.Tensor, failed: torch.Tensor | None = None) -> torch.Tensor:
     """Lower Cholesky factor L of a batch of SPD matrices (..., n, n); a lane
-    the library cannot factor takes the reference's column loop."""
+    the library cannot factor takes the reference's column loop, or, when a
+    bool tensor `failed` (...) is given, is marked in it and left as the
+    library returned it."""
     L, info = torch.linalg.cholesky_ex(M)
     bad = info > 0
+    if failed is not None:
+        failed |= bad
+        return L
     if bool(bad.any()):
         L = L.clone()
         L[bad] = chol_columns(M[bad])

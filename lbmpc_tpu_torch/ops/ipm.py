@@ -31,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from lbmpc_tpu_torch.ops.chol import chol_batched, solve_tri_lower, solve_tri_upper_t
-from lbmpc_tpu_torch.ops.lanes import lane_sum
+from lbmpc_tpu_torch.ops.lanes import exact_mv, exact_sum, lane_sum
 
 
 class IPMSolution(NamedTuple):
@@ -47,14 +47,19 @@ class IPMSolution(NamedTuple):
     farkas_gap: torch.Tensor  # (B,) -h'y for the normalized candidate ray y
 
 
-def _mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _mv_gemm(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """A v for a shared (r, c) or batched (B, r, c) A and v (B, c)."""
     return (A @ v[..., None])[..., 0]
 
 
-def _mtv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _mtv_gemm(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """A' v for a shared (r, c) or batched (B, r, c) A and v (B, r)."""
     return (A.transpose(-1, -2) @ v[..., None])[..., 0]
+
+
+def _mtv_exact(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A' v in ops/lanes' exact form (A v is ops/lanes.exact_mv)."""
+    return exact_mv(A.transpose(-1, -2), v)
 
 
 def _step_length(v: torch.Tensor, dv: torch.Tensor, tau: float) -> torch.Tensor:
@@ -64,8 +69,12 @@ def _step_length(v: torch.Tensor, dv: torch.Tensor, tau: float) -> torch.Tensor:
     return torch.clamp(tau * ratio.amin(dim=-1), max=1.0)
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _dot_lane(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return lane_sum(a * b)
+
+
+def _dot_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return exact_sum(a * b)
 
 
 def _amax_abs(a: torch.Tensor) -> torch.Tensor:
@@ -73,12 +82,20 @@ def _amax_abs(a: torch.Tensor) -> torch.Tensor:
 
 
 def solve_qp(H, g, G, h, iters: int = 30, tol: float = 1e-10,
-             tau: float = 0.995) -> IPMSolution:
+             tau: float = 0.995, chol_failed: torch.Tensor | None = None) -> IPMSolution:
     """Solve min 1/2 x'Hx + g'x s.t. Gx <= h by Mehrotra predictor-corrector,
     from the cold start x = 0, s = max(h - G x, 1), z = 1. H may be zero (LP).
     Float32 matrix products run in full float32 (the package turns TF32 off),
-    as the reference runs them at HIGHEST."""
-    return _solve(H, g, G, h, iters, tol, tau, None)
+    as the reference runs them at HIGHEST. chol_failed (B,) bool: see
+    ops/chol.chol_batched (no device read; the caller checks the flags).
+    With a G per lane (the NMPC's linearized constraints) the
+    matrix-vector products and sums take ops/lanes' exact forms, so a
+    lane's bits do not depend on the batch's size (on the card, from two
+    lanes up). With a shared G they keep the batch's matrix products and
+    lane_sum: the exact forms there moved the float32 repair's rounding
+    enough to take chip_smoke.py's float32 golden episode out of its
+    envelope before step 40."""
+    return _solve(H, g, G, h, iters, tol, tau, None, chol_failed)
 
 
 def solve_qp_warm(H, g, G, h, init: tuple, iters: int = 5, tol: float = 1e-10,
@@ -99,14 +116,19 @@ def solve_qp_mixed(H, g, G, h, f32_iters: int = 18,
     return solve_qp_warm(H, g, G, h, (sol32.x.to(f64), s0, z0), iters=f64_iters)
 
 
-def _solve(H, g, G, h, iters, tol, tau, init) -> IPMSolution:
+def _solve(H, g, G, h, iters, tol, tau, init, chol_failed=None) -> IPMSolution:
     if g.ndim == 1:
         sol = _solve(H, g[None], G, h[None], iters, tol, tau,
-                     None if init is None else tuple(a[None] for a in init))
+                     None if init is None else tuple(a[None] for a in init),
+                     None if chol_failed is None else chol_failed[None])
         return IPMSolution(*(f[0] for f in sol))
     dtype, dev = g.dtype, g.device
     Bsz, n = g.shape
     m = h.shape[-1]
+    if G.ndim == 3:
+        mv, mtv, dot = exact_mv, _mtv_exact, _dot_exact
+    else:
+        mv, mtv, dot = _mv_gemm, _mtv_gemm, _dot_lane
     In = torch.eye(n, dtype=dtype, device=dev)
     finfo = torch.finfo(dtype)
     tiny = float(finfo.tiny) * 1e8
@@ -115,7 +137,7 @@ def _solve(H, g, G, h, iters, tol, tau, init) -> IPMSolution:
 
     if init is None:
         x = torch.zeros(Bsz, n, dtype=dtype, device=dev)
-        s = torch.clamp(h - _mv(G, x), min=1.0)
+        s = torch.clamp(h - mv(G, x), min=1.0)
         z = torch.ones(Bsz, m, dtype=dtype, device=dev)
     else:
         x, s, z = (a.to(dtype) for a in init)
@@ -126,28 +148,28 @@ def _solve(H, g, G, h, iters, tol, tau, init) -> IPMSolution:
     frozen = torch.zeros(Bsz, dtype=torch.bool, device=dev)
     first_it = torch.full((Bsz,), iters, dtype=torch.int64, device=dev)
     for i in range(iters):
-        rd = _mv(H, x) + g + _mtv(G, z)
-        rp = _mv(G, x) + s - h
+        rd = mv(H, x) + g + mtv(G, z)
+        rp = mv(G, x) + s - h
         s_safe = torch.clamp(s, min=tiny)
         d = torch.clamp(z / s_safe, max=d_cap)
         M = H + (Gt * d[:, None, :]) @ G
         # tiny diagonal regularization keeps the factorization alive for
         # rank-deficient LP normal matrices late in the solve
         reg = 1e-12 * (1.0 + M.diagonal(dim1=-2, dim2=-1).sum(dim=-1) / n)
-        L = chol_batched(M + reg[:, None, None] * In)
+        L = chol_batched(M + reg[:, None, None] * In, chol_failed)
 
         def kkt_solve(rc):
-            rhs = -(rd + _mtv(G, d * rp) - _mtv(G, rc / s_safe))
+            rhs = -(rd + mtv(G, d * rp) - mtv(G, rc / s_safe))
             dx = solve_tri_upper_t(L, solve_tri_lower(L, rhs))
-            Gdx = _mv(G, dx)
+            Gdx = mv(G, dx)
             return dx, -rp - Gdx, d * (rp + Gdx) - rc / s_safe
 
-        mu = _dot(s, z) / m
+        mu = dot(s, z) / m
         # predictor
         dx_a, ds_a, dz_a = kkt_solve(s * z)
         a_p = _step_length(s, ds_a, 1.0)
         a_d = _step_length(z, dz_a, 1.0)
-        mu_aff = _dot(s + a_p[:, None] * ds_a, z + a_d[:, None] * dz_a) / m
+        mu_aff = dot(s + a_p[:, None] * ds_a, z + a_d[:, None] * dz_a) / m
         sigma = (mu_aff / torch.clamp(mu, min=tiny)) ** 3
         # corrector
         rc = s * z + ds_a * dz_a - (sigma * mu)[:, None]
@@ -155,7 +177,7 @@ def _solve(H, g, G, h, iters, tol, tau, init) -> IPMSolution:
         a_p = _step_length(s, ds, tau)[:, None]
         a_d = _step_length(z, dz, tau)[:, None]
 
-        done = ((mu < tol_eff * (1.0 + _dot(s, z).abs()))
+        done = ((mu < tol_eff * (1.0 + dot(s, z).abs()))
                 & (_amax_abs(rp) < tol_eff * h_scale * 1e2)
                 & (_amax_abs(rd) < tol_eff * g_scale * 1e2))
         first_it = torch.where(done & ~frozen, i, first_it)
@@ -165,9 +187,9 @@ def _solve(H, g, G, h, iters, tol, tau, init) -> IPMSolution:
         z = torch.where(keep, z, z + a_d * dz)
         frozen = frozen | done
 
-    rd = _mv(H, x) + g + _mtv(G, z)
-    rp = _mv(G, x) + s - h
-    sz = _dot(s, z)
+    rd = mv(H, x) + g + mtv(G, z)
+    rp = mv(G, x) + s - h
+    sz = dot(s, z)
     mu = sz / m
     conv_tol = 1e-7 if dtype == torch.float64 else 2e-4
     converged = (mu < conv_tol * (1.0 + sz.abs())) & (_amax_abs(rp) < conv_tol * h_scale)
@@ -179,13 +201,17 @@ def _solve(H, g, G, h, iters, tol, tau, init) -> IPMSolution:
     y = z / torch.clamp(_amax_abs(z), min=tiny)[:, None]
     Gmax = G.abs().amax(dim=(-2, -1))
     GtG = Gt @ G + (1e-12 * (1.0 + Gmax ** 2))[..., None, None] * In
-    y = torch.clamp(y - _mv(G, torch.linalg.solve(GtG, _mtv(G, y)[..., None])[..., 0]),
+    # GtG is SPD by its ridge: a Cholesky solve, which reads nothing from the
+    # device when chol_failed is given (a general solve checks its pivots on
+    # the host)
+    Lg = chol_batched(GtG, chol_failed)
+    y = torch.clamp(y - mv(G, solve_tri_upper_t(Lg, solve_tri_lower(Lg, mtv(G, y)))),
                     min=0.0)
     ynorm = _amax_abs(y)
     y = y / torch.clamp(ynorm, min=tiny)[:, None]
-    farkas_gap = -_dot(h, y)
+    farkas_gap = -dot(h, y)
     infeasible = (~converged & (ynorm > 0.1) & (farkas_gap > cert_tol * h_scale)
-                  & (_amax_abs(_mtv(G, y)) < cert_tol * (1.0 + Gmax)))
+                  & (_amax_abs(mtv(G, y)) < cert_tol * (1.0 + Gmax)))
     return IPMSolution(x=x, z=z, s=s, mu=mu, primal_res=_amax_abs(rp),
                        dual_res=_amax_abs(rd), converged=converged, iters=first_it,
                        infeasible=infeasible, farkas_gap=farkas_gap)

@@ -9,6 +9,14 @@ bytes past a boundary, so two identical lanes come out a rounding apart
 (tools/lane_determinism.py found this in ops/ipm's mu on the card; the CPU
 sums rows alike). lane_sum starts every row on a boundary; ops/ipm,
 ops/ipm_fused and the SQP merits sum their rows of mI entries with it.
+
+That a lane's bits do not depend on the batch's size either needs more
+(measured on the card): the reduction kernel splits a long row over more
+threads when there are few rows, and cuBLAS picks its batched
+matrix-vector product's kernel by the batch count, while sums of rows of
+at most 128 entries and its two-column product keep one order. exact_sum
+and exact_mv take those forms; the NMPC's solves use them, on at least two
+lanes, which keeps cuSOLVER on its batched paths.
 """
 
 from __future__ import annotations
@@ -32,3 +40,22 @@ def lane_sum(v: torch.Tensor) -> torch.Tensor:
     if n > VECTOR_ROWS and (n % ALIGN or not v.is_contiguous()):
         v = F_.pad(v, (0, -n % ALIGN))[..., :n]
     return v.sum(dim=-1)
+
+
+EXACT_CHUNK = 128
+
+
+def exact_sum(v: torch.Tensor) -> torch.Tensor:
+    """v.sum(dim=-1) in chunks of EXACT_CHUNK entries, then over the chunks:
+    a row sums in the same order whatever the batch's size and the row's
+    place in it."""
+    n = v.shape[-1]
+    if n <= EXACT_CHUNK:
+        return F_.pad(v, (0, -n % ALIGN)).sum(dim=-1)
+    return F_.pad(v, (0, -n % EXACT_CHUNK)).unflatten(-1, (-1, EXACT_CHUNK)).sum(-1).sum(-1)
+
+
+def exact_mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A v per lane, A (B, r, c), v (B, c), as a two-column matrix product
+    (the second column zero): its kernel does not depend on B."""
+    return (A @ F_.pad(v[..., None], (0, 1)))[..., 0]

@@ -272,11 +272,31 @@ def step_rhs(h0, Hp, G, dx0, z):
     return h - gz
 
 
-def _cholesky_floor(M: torch.Tensor) -> torch.Tensor:
+def _cholesky_floor(M: torch.Tensor, column_order: bool = False) -> torch.Tensor:
     """Left-looking batched Cholesky with the kernel's pivot floor
-    sqrt(max(., 1e-30)) (pallas_ipm.py:328); reads M's lower triangle."""
+    sqrt(max(., 1e-30)) (pallas_ipm.py:328); reads M's lower triangle.
+    Each column's updates are summed in one matrix product, or, with
+    column_order, taken one column at a time in the order 0, 1, ..., as the
+    reference's loop subtracts them (and the kernels' loops do): by one
+    rank-one update of the trailing matrix a column. Without equilibration
+    (K4's QP) late float32 Mehrotra iterations leave M's condition near
+    1/eps, and there the matrix product's rounding drove pivots to the floor
+    and lanes to NaN ten times as often as the reference (ROADMAP §3). K2's
+    and K3's plain versions keep the matrix product: with the column order
+    the float32 pallas_mono hybrid on the CPU left the golden envelope
+    within 40 steps (tests/test_torch_parity.py, 0.0207 against 2e-2)."""
     nz = M.shape[-1]
     L = torch.zeros_like(M)
+    if column_order:
+        A = M
+        rows = torch.arange(nz, device=M.device)
+        for j in range(nz):
+            djj = torch.sqrt(torch.clamp(A[:, j, j], min=1e-30))
+            col = torch.where(rows >= j, A[:, :, j] / djj[:, None], 0.0)
+            L[:, :, j] = col
+            if j + 1 < nz:
+                A = A - col[:, :, None] * col[:, None, :]
+        return L
     for j in range(nz):
         acc = M[:, :, j] - (L[:, :, :j] @ L[:, j, :j, None])[..., 0]
         djj = torch.sqrt(torch.clamp(acc[:, j], min=1e-30))
@@ -288,11 +308,13 @@ def _cholesky_floor(M: torch.Tensor) -> torch.Tensor:
 
 def mehrotra_h_plain(G, H, g, h, iters: int, tau: float = 0.995,
                      d_cap: float = 1e6, warm=None, warm_eps: float = 1e-5,
-                     equilibrate: bool = True, pad_rows: int = 0):
+                     equilibrate: bool = True, pad_rows: int = 0,
+                     column_order: bool = False):
     """The plain PyTorch version of the kernels' loop (same iteration,
     batched tensor ops). H is (B, nz, nz) or one (nz, nz). pad_rows appends
     K4's reference padding: rows G = 0, h = 1e6 (s = 1e6, z = 1), outside mu.
-    Returns (x (B, nz), mu (B,), (s, z))."""
+    column_order: the Cholesky's updates one column at a time
+    (_cholesky_floor). Returns (x (B, nz), mu (B,), (s, z))."""
     Bsz, nz = g.shape
     mI = G.shape[0]
     if pad_rows:
@@ -325,7 +347,7 @@ def mehrotra_h_plain(G, H, g, h, iters: int, tau: float = 0.995,
             sc = torch.rsqrt(torch.clamp(torch.diagonal(M, dim1=1, dim2=2), min=1e-30))
         else:
             sc = torch.ones_like(x)
-        L = _cholesky_floor(M * sc[:, :, None] * sc[:, None, :])
+        L = _cholesky_floor(M * sc[:, :, None] * sc[:, None, :], column_order)
 
         def kkt(rc):
             t = d * rp - rc / s_safe
@@ -482,7 +504,8 @@ def mehrotra_plain(G, H, g, h, iters: int, tau: float = 0.995):
     mI = G.shape[0]
     # the reference pads mI to a multiple of 128
     x, mu, (s, z) = mehrotra_h_plain(G, H, g, h, iters, tau, SHARED_D_CAP,
-                                     equilibrate=False, pad_rows=-mI % 128)
+                                     equilibrate=False, pad_rows=-mI % 128,
+                                     column_order=True)
     rp = x @ G.T + s - h
     conv = (mu < 2e-4 * (1.0 + mu * mI)) & (rp.abs().amax(dim=1) < 2e-3)
     return x, conv, mu

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from lbmpc_tpu_torch.device import resolve_device
@@ -62,6 +63,35 @@ def init_window(q: int, d_in: int = 3, d_out: int = 4, dtype=torch.float64,
     count = torch.full(batch, 1 if seed_zero_point else 0, dtype=torch.int32,
                        device=dev)
     return DataWindow(X, Y, valid, count)
+
+
+def window_from_arrays(X, Y, q: int | None = None, dtype=torch.float64,
+                       device=None) -> DataWindow:
+    """A (pre-trained) window from stacked observations X (k, d_in), Y (k,
+    d_out), or in the reference's row layout X (3, k), Y (4, k), e.g. its
+    train_data.mat (7 x 500: rows 1-3 X, rows 4-7 Y; ref:
+    hybrid_LBMPC_casadi.m pretraining, the DMS_tLBMPC_q500_pretrained
+    golden). If k > q the most recent q points are kept; if k < q the rest
+    stays invalid. One window, no lane axis."""
+    X = np.asarray(X, float)
+    Y = np.asarray(Y, float)
+    if X.shape[0] < X.shape[1] and X.shape[0] in (3,):  # row-layout input
+        X = X.T
+        Y = Y.T
+    k = X.shape[0]
+    if q is None:
+        q = k
+    keep = min(k, q)
+    Xw = np.zeros((q, X.shape[1]))
+    Yw = np.zeros((q, Y.shape[1]))
+    valid = np.zeros(q)
+    Xw[:keep] = X[-keep:]
+    Yw[:keep] = Y[-keep:]
+    valid[:keep] = 1.0
+    dev = resolve_device(device)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    return DataWindow(t(Xw), t(Yw), t(valid),
+                      torch.tensor(keep, dtype=torch.int32, device=dev))
 
 
 def push(window: DataWindow, x_new: torch.Tensor,
@@ -141,6 +171,17 @@ def nw_estimate_and_jac(xi: torch.Tensor, window: DataWindow,
 def make_xi(dx: torch.Tensor, du: torch.Tensor) -> torch.Tensor:
     """Regressor xi = [dx1; dx2; du] (ref: oracleL2NW.m:2 `ksi=[x(1:2);u]`)."""
     return torch.cat([dx[..., :2], du], dim=-1)
+
+
+def learned_step(dx: torch.Tensor, du: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, window: DataWindow, bandwidth: float = 0.5,
+                 ridge: float = 0.001) -> torch.Tensor:
+    """Learned model x+ = A dx + B du + g([dx1, dx2, du]) in delta
+    coordinates (ref: models/learnedModel.m:25, DMS_LBMPC_casadi.m:321-333).
+    dx (..., n), du (..., m); the query broadcasts against the window as in
+    nw_estimate."""
+    lin = dx @ A.T + du @ B.T
+    return lin + nw_estimate(make_xi(dx, du), window, bandwidth, ridge)
 
 
 def observe_residual(dx_k, du_k, dx_k1_true, A, B):

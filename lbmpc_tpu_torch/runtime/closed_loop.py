@@ -50,13 +50,17 @@ def run_closed_loop_batched(
     log_post_state: bool = True,
     qp_warm_solve: Callable | None = None,
     qp_init_state: Callable | None = None,
+    lane_exact: bool = False,
 ) -> ClosedLoopResult:
     """Advance the cohort `iterations` steps (ref: functions/ocpLBMPC.m:10-46).
 
     qp_warm_solve/qp_init_state (cross-step warm chain): when given, the QP
     kernel's interior (s, z) state is threaded across time steps —
     qp_warm_solve(dx, window, z_ws, qp_state) -> (z, conv, qp_state') with
-    qp_init_state(dx_init, z0) seeding step 0 cold-identically."""
+    qp_init_state(dx_init, z0) seeding step 0 cold-identically. lane_exact:
+    the applied input in a form whose bits do not depend on B, for a solver
+    whose lanes do not either (the NMPC's), so a lane of a batch equals its
+    single-lane run."""
     m = u_wp.shape[-1] if u_wp.ndim else 1
     u_wp = torch.atleast_1d(u_wp)
     nth = Mtheta_x.shape[1]
@@ -72,7 +76,12 @@ def run_closed_loop_batched(
             z, converged, qps = qp_warm_solve(dx, window, z_ws, qps)
         else:
             z, converged = solve_batch(dx, window, z_ws)
-        du = dx @ Ks.T + z[:, :m]
+        if lane_exact:
+            # Ks dx as products and a short sum per lane, not a matrix
+            # product, whose kernel cuBLAS picks by B
+            du = (dx[:, None, :] * Ks).sum(dim=-1) + z[:, :m]
+        else:
+            du = dx @ Ks.T + z[:, :m]
         x1 = plant_step(x, du + u_wp[None, :])
         dx1 = x1 - x_wp[None, :]
         if learn:
@@ -109,6 +118,7 @@ def run_closed_loop(
     iterations: int,
     learn: bool = True,
     log_post_state: bool = True,
+    lane_exact: bool = False,
 ) -> ClosedLoopResult:
     """One scenario's episode (ref: run_closed_loop): the cohort of one lane
     through run_closed_loop_batched, with the lane axis taken off the
@@ -120,7 +130,7 @@ def run_closed_loop(
     res = run_closed_loop_batched(
         solve_fn, plant_step, warm_start_fn, Ks, A, B, Mtheta_x, x_wp, u_wp,
         dx_init[None], z0[None], DataWindow(*(a[None] for a in window0)),
-        iterations, learn=learn, log_post_state=log_post_state)
+        iterations, learn=learn, log_post_state=log_post_state, lane_exact=lane_exact)
     return ClosedLoopResult(
         sys_history=res.sys_history[0], art_history=res.art_history[0],
         solver_converged=res.solver_converged[0],

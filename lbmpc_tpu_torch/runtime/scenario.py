@@ -2,14 +2,15 @@
 
 Port of lbmpc_tpu/runtime/scenario.py: `build_scenario` does the host setup
 (DLTI, matOCP synthesis, the constraint set, the condensed QP, the
-Gauss-Newton weights) of an LBMPC or LMPC preset of the fmincon, casadi or
-casadi_k family, and its Scenario builds, at first use, the per-problem
-solver (controllers/lmpc on ops/ipm, or controllers/lbmpc.make_lbmpc_solver)
-and the single-scenario episodes on the `condensed` backend (ref:
-examples/LBMPC_RunExample.m:10-107, DMS_LBMPC_casadi.m:13-160).
-`build_fleet_episode` runs a fmincon-family cohort through the batch-level
-SQP. The NMPC presets (ROADMAP §1 item 3) and the stage-wise `sparse*`
-backends (item 4) are not ported and raise.
+Gauss-Newton weights) of an LMPC, LBMPC or NMPC preset of the fmincon,
+casadi or casadi_k family, and its Scenario builds, at first use, the
+per-problem solver (controllers/lmpc on ops/ipm,
+controllers/lbmpc.make_lbmpc_solver, or controllers/nmpc.make_nmpc_solver
+with the tracking and regulation presets) and the single-scenario episodes
+on the `condensed` backend (ref: examples/LBMPC_RunExample.m:10-107,
+DMS_LBMPC_casadi.m:13-160). `build_fleet_episode` runs a fmincon-family
+cohort through the batch-level SQP. The stage-wise `sparse*` backends
+(ROADMAP §1) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -20,13 +21,14 @@ import functools
 import numpy as np
 import torch
 
-from lbmpc_tpu_torch.config import ScenarioConfig, make_preset
+from lbmpc_tpu_torch.config import REG_P, ScenarioConfig, make_preset
 from lbmpc_tpu_torch.controllers.condensed import (CondensedQP, build_casadi_dms,
                                                    build_casadi_dms_k,
                                                    build_fmincon_lmpc)
 from lbmpc_tpu_torch.controllers.lbmpc import (LBMPCWeights, make_casadi_warm_start,
                                                make_lbmpc_solver)
 from lbmpc_tpu_torch.controllers.lmpc import make_lmpc_solver
+from lbmpc_tpu_torch.controllers.nmpc import make_nmpc_solver
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.models.mgcm import (mg2_dlti, mg2_ode, mgcm_dlti, rk4_step,
                                          rk23_step)
@@ -49,7 +51,7 @@ class Scenario:
       scenario's ClosedLoopResult (histories without a lane axis);
     - run(dx_init=None) and run_batch(dx_inits (B, n)).
     The solver and episodes run in the preset's dtype (float32, or float64
-    for "float64" and "mixed")."""
+    for "float64" and "mixed"); the NMPC's in float64, as the reference's."""
 
     cfg: ScenarioConfig
     A: np.ndarray
@@ -82,7 +84,7 @@ class Scenario:
             p["solve"], p["plant"], p["warm"], *p["consts"], c(dx_init), c(z0),
             window0.to(p["dtype"], p["device"]),
             self.cfg.iterations if steps is None else steps, learn=p["learn"],
-            log_post_state=self.cfg.controller != "lbmpc")
+            log_post_state=self.cfg.controller != "lbmpc", lane_exact=p["lane_exact"])
 
     def episode_with_window(self, dx_init, window0: DataWindow) -> ClosedLoopResult:
         return self.episode_from(dx_init, window0, torch.zeros(self.nz))
@@ -115,7 +117,7 @@ class Scenario:
             p["solve"], p["plant"], p["warm"], *p["consts"], dx,
             torch.zeros(Bsz, self.nz, dtype=p["dtype"], device=p["device"]), win,
             self.cfg.iterations, learn=p["learn"],
-            log_post_state=self.cfg.controller != "lbmpc")
+            log_post_state=self.cfg.controller != "lbmpc", lane_exact=p["lane_exact"])
 
 
 def _episode_parts(sc: Scenario) -> dict:
@@ -125,10 +127,11 @@ def _episode_parts(sc: Scenario) -> dict:
     backend = cfg.solver.qp_backend
     if backend != "condensed":
         raise ValueError(f"qp_backend={backend!r}: the stage-wise Riccati backends "
-                         "are not ported yet (ROADMAP §1 item 4); use 'condensed'")
+                         "are not ported yet (ROADMAP §1 item 2); use 'condensed'")
     dev = resolve_device(sc.device)
     mixed = cfg.solver.dtype == "mixed"
-    dtype = torch.float32 if cfg.solver.dtype == "float32" else torch.float64
+    dtype = (torch.float32 if cfg.solver.dtype == "float32" and cfg.controller != "nmpc"
+             else torch.float64)
     ipm = sc.ipm_iters or cfg.solver.ipm_iters
     plant_ode = mg2_ode if p.model == "mg2" else None
     if cfg.family == "fmincon":
@@ -148,6 +151,16 @@ def _episode_parts(sc: Scenario) -> dict:
 
         # LMPC ignores the window; the MX_LBMPC variant still collects data
         learn = cfg.collect_data
+    elif cfg.controller == "nmpc":
+        solve = make_nmpc_solver(
+            sc.cs, sc.ocp.Ks, sc.w, cfg.ocp.N, p.ts, np.asarray(p.x_wp), p.u_wp,
+            family=cfg.family, dx_ref=np.asarray(cfg.dx_ref),
+            sqp_iters=cfg.solver.sqp_iters, ipm_iters=ipm,
+            prediction=cfg.solver.nmpc_prediction, AB=(sc.A, sc.B),
+            regulation=cfg.ocp.regulation,
+            P_term=np.asarray(REG_P) if cfg.ocp.regulation else None,
+            ellipsoid_alpha=cfg.ocp.ellipsoid_alpha, dtype=dtype, device=dev)
+        learn = False
     else:
         solve = make_lbmpc_solver(
             sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, family=cfg.family, delta=p.ts,
@@ -160,20 +173,20 @@ def _episode_parts(sc: Scenario) -> dict:
               else np.zeros_like(sc.ocp.Ks))
     consts = (t(np.atleast_2d(Ks_eff)), t(sc.A), t(sc.B), t(sc.ocp.LAMBDA), t(p.x_wp),
               t([p.u_wp]))
+    # the NMPC's lanes do not depend on B (controllers/nmpc), nor then do its
+    # episodes' lanes
     return dict(solve=solve, plant=plant, warm=warm, learn=learn, consts=consts,
-                dtype=dtype, device=dev)
+                dtype=dtype, device=dev, lane_exact=cfg.controller == "nmpc")
 
 
 def build_scenario(name_or_cfg, ipm_iters: int | None = None, device=None) -> Scenario:
-    """An LBMPC or LMPC preset: the host setup now, the solver and episodes
-    (on `device`, CUDA unless named) at first use. ipm_iters overrides the
-    preset's IPM iteration count, as in the reference."""
+    """An LMPC, LBMPC or NMPC preset: the host setup now, the solver and
+    episodes (on `device`, CUDA unless named) at first use. ipm_iters
+    overrides the preset's IPM iteration count, as in the reference."""
     cfg = (name_or_cfg if isinstance(name_or_cfg, ScenarioConfig)
            else make_preset(name_or_cfg))
-    if cfg.controller not in ("lbmpc", "lmpc"):
-        raise ValueError("the port's scenarios cover LBMPC and LMPC presets; "
-                         f"controller={cfg.controller!r} is not ported yet "
-                         "(ROADMAP §1 item 3)")
+    if cfg.controller not in ("lbmpc", "lmpc", "nmpc"):
+        raise ValueError(f"controller={cfg.controller!r}")
     p = cfg.plant
     mg2 = p.model == "mg2"
     A, B, C, _ = (mg2_dlti if mg2 else mgcm_dlti)(p.ts)

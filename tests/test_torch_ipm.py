@@ -163,6 +163,41 @@ def test_farkas_certificate_matches_reference():
     np.testing.assert_allclose(port["farkas_gap"], ref["farkas_gap"], rtol=1e-6, atol=1e-9)
 
 
+@pytest.mark.parametrize("rank", ["full", "deficient"])
+def test_farkas_certificate_float32(rank):
+    """float32, where the projection's 1e-12 ridge is below eps. With a
+    full-rank G the infeasible QP is flagged and the feasible one beside it
+    is not (the reference's float32 gap is NaN on this QP: it flags
+    neither). With a rank-deficient G (x0 + x1 <= -1 and >= 1) G'G fails to
+    factor: the eager solve takes the reference's column loop, whose pivot
+    floor underflows in float32, and like the reference flags neither; a
+    caller that passes chol_failed (the NMPC's graph) finds the failure
+    marked instead."""
+    if rank == "full":
+        G = np.array([[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]])
+        h = np.array([[-1.0, -1.0, 1.0, 1.0], [1.0, 1.0, 1.0, 1.0]])
+    else:
+        G = np.array([[1.0, 1.0], [-1.0, -1.0], [2.0, 2.0]])
+        h = np.array([[-1.0, -1.0, 3.0], [1.0, 1.0, 3.0]])
+    H = np.broadcast_to(np.eye(2), (2, 2, 2)).copy()
+    g = np.array([[0.3, -0.2], [0.3, -0.2]])
+    f32 = jnp.float32
+    ref = jax.vmap(lambda H_, g_, h_: j_ipm.solve_qp(H_, g_, jnp.asarray(G, f32), h_, iters=30))(
+        jnp.asarray(H, f32), jnp.asarray(g, f32), jnp.asarray(h, f32))
+    port = _port(t_ipm.solve_qp, H, g, G, h, iters=30, dtype=torch.float32)
+    failed = torch.zeros(2, dtype=torch.bool)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)
+    t_ipm.solve_qp(t(H), t(g), t(G), t(h), iters=30, chol_failed=failed)
+    if rank == "full":
+        np.testing.assert_array_equal(port["infeasible"], [True, False])
+        assert port["farkas_gap"][0] > 1.0 and port["farkas_gap"][1] < 0.0
+        assert not bool(failed.any())
+    else:
+        np.testing.assert_array_equal(port["infeasible"], np.asarray(ref.infeasible))
+        np.testing.assert_array_equal(port["infeasible"], [False, False])
+        assert bool(failed.all())
+
+
 @pytest.fixture(scope="module")
 def lmpc():
     """The reference's N=20 LMPC scenario and condensed QP, the port's QP and

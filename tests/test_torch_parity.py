@@ -13,7 +13,10 @@ tests/test_parity.py:
 - the float32 pallas_mono hybrid fleet at LBMPC_N50 (nz=51: K3w's plain
   version on the CPU, the vmapped repair) with the envelope of the
   reference's shipping-backend parity test (tests/test_parity.py:229-300)
-  over its first 40 steps; 300 steps behind RUN_SLOW."""
+  over its first 40 steps; 300 steps behind RUN_SLOW;
+- that test's own configuration (float32 pallas_full, the fused repair):
+  the steps its fused solve flags before step 40, and that the flag is the
+  last QP's (8 cold iterations end above mu 1e-2 in float64 too)."""
 
 import dataclasses
 import os
@@ -134,3 +137,58 @@ def test_pallas_mono_hybrid_closed_loop_golden_parity(golden):
                  - golden("LBMPC_N50")["sysH"][:, : held + 1])
     assert err.max() < 2e-2, err.max()
     assert err[:2].max() < 2e-3, err[:2].max()
+
+
+def test_pallas_full_shipping_configuration_flags_are_its_qps(golden):
+    """The reference's shipping-backend configuration as tests/test_parity.py:
+    229-291 builds it (the float32 pallas_full hybrid, sqp 2, ipm (16, 8),
+    the fused repair of 1 of 8 identical lanes, learning on) on the CPU
+    (K1w's and K2w's plain versions), 40 steps. The reference's test claims
+    every step converged; here, as on the card (chip_smoke.py phase 32),
+    the fused solve flags a step before step 40 (ROADMAP §3). This pins the
+    flag and what it rests on: at the first flagged step the fused solve's
+    last QP (8 cold Mehrotra iterations) ends with mu above the flag's
+    1e-2, in float64 too, so the flag is the QP's iteration budget and not
+    float32 rounding (the reference's own K2w ends there above 1e-2 as well,
+    tools/shipping_witness.py). The 8 lanes stay identical and finite."""
+    from lbmpc_tpu_torch.ops.qp_kernel import mehrotra_h_plain
+
+    steps, B = 40, 8
+    cfg = lt.make_preset("LBMPC_N50", iterations=steps)
+    _, run = build_fleet_episode(cfg, backend="hybrid", qp_kernel="pallas_full",
+                                 ipm_iters=(16, 8), sqp_iters=2, repair_frac=1.0 / B,
+                                 device="cpu")
+    solver, calls = run.solver, []
+    raw = solver.raw
+
+    def recording(dx0, windows, z_ws):
+        calls.append((dx0.clone(), type(windows)(*(a.clone() for a in windows)), z_ws.clone()))
+        return raw(dx0, windows, z_ws)
+
+    solver.raw = recording
+    res = run(np.broadcast_to(np.asarray(cfg.dx_init), (B, 4)).copy())
+    assert bool(res.sys_history.isfinite().all())
+    assert bool((res.sys_history == res.sys_history[:1]).all())
+    flagged = np.nonzero(~res.solver_converged[0].numpy())[0]
+    assert flagged.size and 30 <= flagged[0] < steps, flagged
+    # the fused solve again on the first flagged step's inputs, its QPs kept
+    fused, qps = solver.fused, []
+
+    def keeping(qp):
+        solve = qp.raw_packed
+
+        def kept(H, g, h, warm=None):
+            qps.append((qp, H, g, h))
+            return solve(H, g, h, warm)
+        return kept
+
+    for qp in fused._qps.values():
+        qp.raw_packed = keeping(qp)
+    _, conv = fused.raw(*calls[flagged[0]])
+    assert not bool(conv.any())
+    qp, H, g, h = qps[-1]
+    assert qp.iters == 8
+    d = lambda a: a.double()
+    _, mu32, _ = mehrotra_h_plain(fused.G, H, g, h, qp.iters, qp.tau, qp.d_cap)
+    _, mu64, _ = mehrotra_h_plain(d(fused.G), d(H), d(g), d(h), qp.iters, qp.tau, qp.d_cap)
+    assert bool((mu32 >= 1e-2).all()) and bool((mu64 >= 1e-2).all()), (mu32[0], mu64[0])

@@ -154,8 +154,14 @@ def test_port_imports_no_jax_and_no_reference_package():
         "z, conv = build_scenario('LMPC_N20', device='cpu').solve(\n"
         "    torch.tensor([[-0.35, -0.4, 0.0, 0.0]]), None, None)\n"
         "assert bool(conv.all()) and z.dtype == torch.float64\n"
+        "z, conv = build_scenario('REG_LMPC', device='cpu').solve(\n"
+        "    torch.tensor([[-0.02, -0.016, 0.0, 0.0]]), None, torch.zeros(1, 101))\n"
+        "assert bool(conv.all()) and z.dtype == torch.float64\n"
+        "from lbmpc_tpu_torch.oracle import window_from_arrays\n"
+        "assert int(window_from_arrays([[0.0] * 5] * 3, [[0.0] * 5] * 4, device='cpu').count) == 5\n"
         "for m in ('ops.chol_kernel', 'ops.ipm_fused', 'runtime.scenario', 'ops.ipm',\n"
-        "          'ops.chol', 'ops.mono_kernel', 'controllers.sqp', 'controllers.lmpc'):\n"
+        "          'ops.chol', 'ops.mono_kernel', 'controllers.sqp', 'controllers.lmpc',\n"
+        "          'controllers.nmpc', 'models.collocation', 'models.linear'):\n"
         "    assert 'lbmpc_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'lbmpc_tpu' or m.startswith('lbmpc_tpu.')]\n"
@@ -163,7 +169,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 21
+    assert int(out.stdout.split()[0]) >= 24
 
 
 def test_tf32_is_off():

@@ -8,7 +8,16 @@ the port's plain version (ops/qp_kernel.mehrotra_plain) in float32 and in
 float64. Prints one JSON line: each solver's converged share and lanes with
 a NaN, and each port variant's agreement with the reference.
 
+`--random` solves seeded random strictly feasible QPs instead, at mI in
+{128, 806, 1024} x nz in {8, 21, 32} (the shapes of the random QPs first
+tried for K4's GPU tests: G standard normal over sqrt(nz), h in [1, 2] so
+x = 0 is inside, one H = diag in [1, 2] plus a small rank-one term, g
+normal with deviation 0.7; numpy seed mI * 100 + nz), 256 lanes each by
+default, float32, through the reference and the port's float32 plain
+version, and prints each shape's NaN lanes and converged shares.
+
     JAX_PLATFORMS=cpu python tools/k4_reference.py
+    JAX_PLATFORMS=cpu python tools/k4_reference.py --random [--batch 256]
 """
 
 from __future__ import annotations
@@ -33,6 +42,19 @@ def lmpc_inputs(lanes: int):
     g = ((lqp.Gg @ dxs.T).T + lqp.g0).astype(np.float32)
     h = (lqp.h0 + (lqp.Hp @ dxs.T).T).astype(np.float32)
     return np.asarray(lqp.G, np.float32), np.asarray(lqp.H, np.float32), g, h
+
+
+RANDOM_SHAPES = [(mI, nz) for mI in (128, 806, 1024) for nz in (8, 21, 32)]
+
+
+def random_inputs(mI: int, nz: int, lanes: int):
+    """A strictly feasible random shared-H QP batch (float32)."""
+    rng = np.random.default_rng(mI * 100 + nz)
+    u = rng.standard_normal((nz, 1)) / np.sqrt(nz)
+    H = np.eye(nz) * rng.uniform(1.0, 2.0, (nz, 1)) + 0.1 * u @ u.T
+    f = lambda a: np.asarray(a, np.float32)
+    return (f(rng.standard_normal((mI, nz)) / np.sqrt(nz)), f(H),
+            f(0.7 * rng.standard_normal((lanes, nz))), f(rng.uniform(1.0, 2.0, (lanes, mI))))
 
 
 def reference(G, H, g, h, iters: int):
@@ -80,9 +102,28 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8192, help="lanes (a multiple of 128)")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--random", action="store_true",
+                    help="seeded random QPs at mI x nz in {128, 806, 1024} x {8, 21, 32}")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch
+
+    if args.random:
+        lanes = args.batch if args.batch != 8192 else 256
+        rows = []
+        for mI, nz in RANDOM_SHAPES:
+            G, H, g, h = random_inputs(mI, nz, lanes)
+            x_ref, c_ref = reference(G, H, g, h, args.iters)
+            x32, c32 = port_plain(G, H, g, h, args.iters, torch.float32)
+            x64, c64 = port_plain(G, H, g, h, args.iters, torch.float64)
+            row = {"mI": mI, "nz": nz, "lanes": lanes, "iters": args.iters,
+                   "reference_interpret": summary(x_ref, c_ref),
+                   "port_plain_float32": summary(x32, c32, x_ref, c_ref),
+                   "port_plain_float64": summary(x64, c64, x_ref, c_ref)}
+            print(json.dumps(row), file=sys.stderr, flush=True)
+            rows.append(row)
+        print(json.dumps({"random": rows}))
+        return 0
 
     G, H, g, h = lmpc_inputs(args.batch)
     x_ref, c_ref = reference(G, H, g, h, args.iters)
