@@ -38,7 +38,15 @@ counts set to 0 just before it and read just after:
   N=100, REG_NMPC, REG_LMPC, the collocation NMPC against the RK4 NMPC) and
   an NMPC_N50 batch of 1024 closed loops; then the reference's
   shipping-backend golden configuration (the float32 pallas_full hybrid
-  with the fused repair at LBMPC_N50, K1w + K2w, 300 steps).
+  with the fused repair at LBMPC_N50, K1w + K2w, 300 steps);
+- the stage-wise Riccati backends (ops/riccati, ops/sparse_ipm,
+  ops/sparse_gn; plain torch, no kernel; each solve replayed from a CUDA
+  graph): the sparse LMPC at DMS_LMPC's N=50 and batch 1024 on
+  `sparse` and `sparse_parallel` in float64 and float32, the sparse LBMPC at
+  the DMS flagship's full width (N=100, q=100) at batch 1024 with the
+  reference's sqp 2, ipm 16, and 64-lane closed loops on each sparse
+  backend against the condensed one; the sparse_parallel memory guard's
+  model against the allocator's peak.
 It times the kernels, their plain versions, the library yardsticks, the
 solves and the fleet steps with CUDA events (K2 and K3 at batch 2048, the
 cohort and the repair's K, with their registers, spills and lanes an SM;
@@ -87,7 +95,10 @@ GOLDEN_B, GOLDEN_F32_STEPS, GOLDEN_F64_STEPS = 8, 300, 100
 SHIPPING_STEPS = 300         # the reference's shipping-backend test (test_parity.py:229)
 GOLDEN_F32_HELD = 40         # the steps the float32 hybrid is held to the golden envelope
 NMPC_BATCH, NMPC_BATCH_STEPS = 1024, 10
-LAST_PHASE = 33
+SPARSE_BATCH = 1024           # the sparse LMPC's batch (phase 34)
+SPARSE_LOOP_LANES, SPARSE_LOOP_STEPS = 64, 4
+KERNELS_PHASE = 33            # the kernels line, printed last
+LAST_PHASE = 36
 
 
 def log(msg: str) -> None:
@@ -122,6 +133,21 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_call(fn):
+    """(fn(), its ms) by CUDA events around one call (the host's enqueue
+    included)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def graph_ms(fn, reps: int = 20) -> float:
@@ -586,6 +612,9 @@ def run_phases(dev, card: str, kind: str, args) -> int:
         log(f"  wall time so far {time.time() - t_start:.1f} s")
     if args.stop_after >= 32:
         shipping_phase(dev, tag)
+        log(f"  wall time so far {time.time() - t_start:.1f} s")
+    if args.stop_after >= 34:
+        sparse_phases(dev, tag, args)
         log(f"  wall time so far {time.time() - t_start:.1f} s")
     return finish(card, kind, kernels, args)
 
@@ -2577,6 +2606,221 @@ def shipping_phase(dev, tag: str) -> None:
     log(f"  phase 32 took {time.time() - t_phase:.1f} s")
 
 
+def sparse_states(cfg, B: int, seed: int):
+    """B seeded states around a casadi preset's start (x_init_abs - x_wp),
+    lane 0 at it, float64 on the host."""
+    rng = np.random.default_rng(seed)
+    x0 = np.asarray(cfg.x_init_abs) - np.asarray(cfg.plant.x_wp)
+    dx = x0 + np.array([0.01, 0.01, 0.01, 0.1]) * rng.standard_normal((B, 4))
+    dx[0] = x0
+    return dx
+
+
+def no_kernel_launched(what: str) -> None:
+    counts = {**route_counts(), **chol_counts()}
+    require(not any(counts.values()), f"{what}: no kernel launched (the stage-wise path has "
+            f"none; {counts})")
+
+
+def sparse_phases(dev, tag: str, args) -> None:
+    """Phases 34-36: the stage-wise Riccati backends (ops/riccati,
+    ops/sparse_ipm, ops/sparse_gn; plain torch, no kernel): the sparse LMPC
+    at DMS_LMPC's N=50 and batch 1024 on both backends in both precisions,
+    the sparse LBMPC at the DMS flagship's full width (N=100, q=100) at batch
+    1024 with the reference's "sparse_s2i16" settings, and short closed
+    loops on each sparse backend against the condensed one."""
+    import torch
+
+    import lbmpc_tpu_torch as lt
+    from lbmpc_tpu_torch.controllers.lmpc import make_lmpc_solver
+    from lbmpc_tpu_torch.controllers.lbmpc import make_lbmpc_solver
+    from lbmpc_tpu_torch.controllers.sqp_fused import make_lbmpc_solver_fused
+    from lbmpc_tpu_torch.ops.sparse_ipm import peak_bytes
+    from lbmpc_tpu_torch.runtime.scenario import build_scenario, sparse_parallel_limit
+
+    f64, f32 = torch.float64, torch.float32
+    with_solver = lambda cfg, **kw: dataclasses.replace(
+        cfg, solver=dataclasses.replace(cfg.solver, **kw))
+
+    # ---- phase 34: the sparse LMPC at N=50, B=1024 ----------------------------
+    t_phase = time.time()
+    base = lt.make_preset("DMS_LMPC")
+    N_, B = base.ocp.N, SPARSE_BATCH
+    log(f"phase 34: sparse LMPC, DMS_LMPC N={N_}, batch {B}, ipm {base.solver.ipm_iters}: "
+        "sparse and sparse_parallel in float64 and float32")
+    dxh = sparse_states(base, B, 21)
+    scs = {(b, d): build_scenario(with_solver(base, qp_backend=b, dtype=d), device=dev)
+           for b in ("sparse", "sparse_parallel") for d in ("float64", "float32")}
+    out, ms = {}, {}
+    torch.cuda.synchronize()
+    zero_counts()
+    for key, sc in scs.items():
+        dx = torch.as_tensor(dxh, dtype=f64 if key[1] == "float64" else f32, device=dev)
+        out[key] = sc.solve(dx, None, None)
+    torch.cuda.synchronize()
+    no_kernel_launched("sparse LMPC")
+    eager_ms = {}
+    for key, sc in scs.items():
+        dx = torch.as_tensor(dxh, dtype=f64 if key[1] == "float64" else f32, device=dev)
+        ms[key] = cuda_ms(lambda: sc.solve(dx, None, None), reps=3, warmup=0)
+        # the graphed solve against its eager path on the same device
+        eager = getattr(sc.solve, "eager", sc.solve)
+        (ze, ce), eager_ms[key] = cuda_call(lambda: eager(dx, None, None))
+        require(torch.equal(ze, out[key][0]) and torch.equal(ce, out[key][1]),
+                f"sparse LMPC {key[0]} {key[1]}: the graph replays the eager solve bit for bit")
+    nz = scs[("sparse", "float64")].nz
+    for (b, d), (z, conv) in out.items():
+        share = conv.double().mean().item()
+        log(f"  {b} {d}: solve {ms[(b, d)]:.3f} ms (graph replay; eager {eager_ms[(b, d)]:.3f} "
+            "ms; CUDA events, host included), "
+            f"converged share {share:.6f}, finite {bool(torch.isfinite(z).all())} {tag}")
+        require(tuple(z.shape) == (B, nz) and bool(torch.isfinite(z).all()),
+                f"sparse LMPC {b} {d}: (B, nz), every lane finite")
+        require(share >= (0.99 if d == "float64" else 0.9),
+                f"sparse LMPC {b} {d}: converged share >= {0.99 if d == 'float64' else 0.9}")
+    zs, zp = out[("sparse", "float64")][0], out[("sparse_parallel", "float64")][0]
+    dpar = (zs - zp).abs().amax(dim=1)
+    apart = torch.nonzero(dpar > 1e-9)[:, 0].tolist()
+    log(f"  float64 parallel vs sequential: max |dz| {dpar.max().item():.3e}, lane 0 "
+        f"{dpar[0].item():.3e}, lanes beyond 1e-9: {len(apart)} {apart[:8]} (ROADMAP §3: on "
+        "lanes whose barrier weights reach the cap the scan's answer turns on roundoff, in the "
+        "reference too)")
+    require(dpar[0].item() <= 1e-9 and len(apart) <= B // 100,
+            "sparse_parallel within 1e-9 of sparse (float64) at the preset's state and on all "
+            "but 1 % of the lanes")
+    # 8 lanes against the port's condensed per-problem solve (ops/ipm, float64)
+    cond = make_lmpc_solver(scs[("sparse", "float64")].qp, ipm_iters=40, dtype=f64, device=dev)
+    zc, sol = cond(torch.as_tensor(dxh[:8], dtype=f64, device=dev))
+    cc = sol.converged
+    dc = (zs[:8] - zc).abs().max().item()
+    log(f"  8 lanes against the condensed float64 solve (40 IPM iterations): max |dz| "
+        f"{dc:.3e}, condensed converged {bool(cc.all())}")
+    require(bool(cc.all()) and dc <= 1e-5, "sparse LMPC within 1e-5 of the condensed solve "
+            "on 8 lanes (the reference's bound at long N)")
+    for b in ("sparse", "sparse_parallel"):
+        (z32, c32), (z64, c64) = out[(b, "float32")], out[(b, "float64")]
+        both = c32 & c64
+        du = (z32[:, 0].double() - z64[:, 0]).abs()
+        far = du[both] > 2e-4
+        log(f"  {b} float32 U[0] against float64 on {int(both.sum())} lanes converged in "
+            f"both: max {du[both].max().item():.3e}, median {du[both].median().item():.3e}, "
+            f"lanes beyond 2e-4: {int(far.sum())}")
+        require(bool(both[0]) and du[0].item() <= 2e-4,
+                f"{b}: float32 U[0] within 2e-4 of float64 at the preset's state (lane 0; "
+                "tests/test_sparse_ipm.py:88-107)")
+    # the sparse_parallel memory guard's model against the allocator's peak,
+    # on the eager solve (a graph's capture holds the same in its pool)
+    sc = scs[("sparse_parallel", "float64")]
+    eager = getattr(sc.solve, "eager", sc.solve)
+    rows = (len(sc.cs.h_x), len(sc.cs.h_u), len(sc.cs.h_w_N))
+    for Bm in (256, B):
+        dx = torch.as_tensor(dxh[:Bm], dtype=f64, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        eager(dx, None, None)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        model = peak_bytes(Bm, N_, 4, 1, 1, rows, 8, parallel=True)
+        log(f"  sparse_parallel float64 B={Bm}: peak {peak} B above the inputs, model {model} B "
+            f"({peak / model:.3f} of it; {peak / (Bm * N_):.1f} B a lane-stage) {tag}")
+        require(model / 4 <= peak <= model, f"sparse_parallel peak at B={Bm} within "
+                "[model / 4, model]")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    for d, dt in (("float64", f64), ("float32", f32)):
+        lim = sparse_parallel_limit(scs[("sparse_parallel", d)], dev, dt)
+        log(f"  sparse_parallel guard, {d}: {lim} lane-stages ({lim // N_} lanes at N={N_}) "
+            f"of {total} B of device memory {tag}")
+    log(f"  phase 34 took {time.time() - t_phase:.1f} s")
+    if args.stop_after < 35:
+        return
+
+    # ---- phase 35: the sparse LBMPC at the DMS flagship's full width ----------
+    t_phase = time.time()
+    dcfg = with_solver(lt.make_preset("DMS_LBMPC_q100"), qp_backend="sparse", dtype="float32",
+                       sqp_iters=2, ipm_iters=16)
+    log(f"phase 35: sparse LBMPC, DMS_LBMPC_q100 (N={dcfg.ocp.N}, q={dcfg.oracle.q}, "
+        f"terminal at x_1, tightened first step), batch {DMS_BATCH}, float32, sqp 2, ipm 16")
+    ds = build_scenario(dcfg, device=dev)
+    rng = np.random.default_rng(3)
+    _, dwin, _ = bench_inputs(rng, DMS_BATCH, ds.nz, dev)
+    x0 = np.asarray(dcfg.x_init_abs) - np.asarray(dcfg.plant.x_wp)
+    ddx = torch.as_tensor(x0 + 0.01 * rng.standard_normal((DMS_BATCH, 4)), dtype=f32,
+                          device=dev)
+    dz0 = torch.zeros(DMS_BATCH, ds.nz, dtype=f32, device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    zsp, csp = ds.solve(ddx, dwin, dz0)
+    torch.cuda.synchronize()
+    no_kernel_launched("sparse LBMPC")
+    t_sp = cuda_ms(lambda: ds.solve(ddx, dwin, dz0), reps=3, warmup=0)
+    (ze, ce), t_eager = cuda_call(lambda: getattr(ds.solve, "eager", ds.solve)(ddx, dwin, dz0))
+    require(torch.equal(ze, zsp) and torch.equal(ce, csp),
+            "sparse LBMPC: the graph replays the eager solve bit for bit")
+    xla = make_lbmpc_solver_fused(ds.qp, ds.A, ds.B, ds.ocp.Ks, ds.w, family="casadi",
+                                  delta=dcfg.plant.ts, bandwidth=dcfg.oracle.bandwidth,
+                                  ridge=dcfg.oracle.ridge, dx_ref=np.asarray(dcfg.dx_ref),
+                                  sqp_iters=2, ipm_iters=XLA_SCHED, alphas=LADDER, device=dev)
+    zx, cx = xla(ddx, dwin, dz0)
+    share, xshare = csp.double().mean().item(), cx.double().mean().item()
+    log(f"  sparse solve {t_sp:.3f} ms (graph replay; eager {t_eager:.3f} ms; CUDA events, "
+        f"host included), converged share "
+        f"{share:.6f}; the condensed xla route (ipm {XLA_SCHED}) on the same states "
+        f"{xshare:.6f}; |z_sparse - z_xla| median {(zsp - zx).abs().median().item():.3e} {tag}")
+    require(tuple(zsp.shape) == (DMS_BATCH, ds.nz) and bool(torch.isfinite(zsp).all()),
+            "sparse LBMPC: (B, nz), every lane finite")
+    # 8 lanes in float64 against the port's condensed float64 solver
+    d64 = with_solver(dcfg, dtype="float64", ipm_iters=30)
+    s64 = build_scenario(d64, device=dev)
+    win8 = type(dwin)(*(a[:8] for a in dwin))
+    z64s, c64s = getattr(s64.solve, "eager", s64.solve)(ddx[:8].double(), win8,
+                                                        dz0[:8].double())
+    cond = make_lbmpc_solver(s64.qp, s64.A, s64.B, s64.ocp.Ks, s64.w, family="casadi",
+                             delta=d64.plant.ts, bandwidth=d64.oracle.bandwidth,
+                             ridge=d64.oracle.ridge, dx_ref=np.asarray(d64.dx_ref), sqp_iters=2,
+                             ipm_iters=30, dtype=f64, device=dev)
+    z64c, c64c = cond(ddx[:8].double(), win8, dz0[:8].double())
+    d8 = (z64s - z64c).abs().max().item()
+    log(f"  8 lanes float64 (sqp 2, ipm 30) against the condensed float64 solver: max |dz| "
+        f"{d8:.3e}; converged sparse {c64s.tolist()} condensed {c64c.tolist()}")
+    require(bool(c64s.all()) and bool(c64c.all()) and d8 <= 1e-4,
+            "sparse LBMPC within 1e-4 of the condensed float64 solver on 8 lanes")
+    log(f"  phase 35 took {time.time() - t_phase:.1f} s")
+    if args.stop_after < 36:
+        return
+
+    # ---- phase 36: short closed loops on each sparse backend ------------------
+    t_phase = time.time()
+    B, steps = SPARSE_LOOP_LANES, SPARSE_LOOP_STEPS
+    log(f"phase 36: run_batch on {B} lanes, {steps} steps, float64: DMS_LMPC (N={N_}) on "
+        "sparse and sparse_parallel, LBMPC_N20 on sparse, each against the condensed backend")
+    lm = dataclasses.replace(base, iterations=steps)
+    lb = lt.make_preset("LBMPC_N20", iterations=steps)
+    dxl = sparse_states(lm, B, 23)
+    rng = np.random.default_rng(24)
+    dxb = np.asarray(lb.dx_init) + np.array([0.01, 0.01, 0.01, 0.1]) * rng.standard_normal((B, 4))
+    # DMS_LMPC at 1e-4: from these states the reference's own two backends part by
+    # 1.8e-5 in 5 steps (lane 43 of 64 from seed 23; the port's sparse episode equals the reference's
+    # to 1e-13 there, PERF.md §6), where its test at N=30 from dx_init holds 1e-6
+    for name, cfg, backend, dx, tol in (("DMS_LMPC", lm, "sparse", dxl, 1e-4),
+                                        ("DMS_LMPC", lm, "sparse_parallel", dxl, 1e-4),
+                                        ("LBMPC_N20", lb, "sparse", dxb, 1e-6)):
+        zero_counts()
+        t0 = time.time()
+        rs = build_scenario(with_solver(cfg, qp_backend=backend), device=dev).run_batch(dx)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        no_kernel_launched(f"{name} {backend} closed loop")
+        rc = build_scenario(cfg, device=dev).run_batch(dx)
+        d = (rs.sys_history - rc.sys_history).abs().max().item()
+        conv = rs.solver_converged.double().mean().item()
+        log(f"  {name} {backend}: {wall / steps * 1e3:.1f} ms/step (host clock), conv "
+            f"{conv:.6f}, max |sysH - condensed| {d:.3e} {tag}")
+        require(bool(torch.isfinite(rs.sys_history).all()) and d <= tol,
+                f"{name} {backend} closed loop within {tol:g} of the condensed backend")
+    log(f"  phase 36 took {time.time() - t_phase:.1f} s")
+
+
 def profile_fleet(cfg, fleet_kw: dict, dx_init, tag: str) -> None:
     """torch.profiler over a 3-step fleet episode at the cohort: device time
     by kernel name and the device's busy share of the host wall time."""
@@ -2615,8 +2859,8 @@ def finish(card: str, kind: str, kernels: dict, args) -> int:
                     if m == "jax" or m.startswith("jax.") or m == "lbmpc_tpu"
                     or m.startswith("lbmpc_tpu."))
     require(not leaked, f"no jax / lbmpc_tpu module imported ({leaked[:3]})")
-    if args.stop_after >= LAST_PHASE:
-        log(f"phase {LAST_PHASE}: kernels")
+    if args.stop_after >= KERNELS_PHASE:
+        log(f"phase {KERNELS_PHASE}: kernels")
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
         extra = ("ms_host", "max_abs_err_held", "nan_lanes", "far_from_float64", "ms_8_iters",

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from lbmpc_tpu_torch.controllers.condensed import CondensedQP
-from lbmpc_tpu_torch.controllers.sqp import sqp_solve
+from lbmpc_tpu_torch.controllers.sqp import _ALPHAS, sqp_solve
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.ops.lanes import lane_sum
 from lbmpc_tpu_torch.oracle import (DataWindow, make_xi, nw_estimate,
@@ -222,6 +222,166 @@ def make_lbmpc_solver(
                         mixed=mixed, res_jac_fn=lambda z: res_jac(z, dx0, window))
         return out.z, out.qp_converged
 
+    return solve
+
+
+def make_lbmpc_solver_sparse(
+    qp: CondensedQP,
+    A: np.ndarray,
+    B: np.ndarray,
+    Ks: np.ndarray,
+    w: LBMPCWeights,
+    cs,
+    family: str = "fmincon",
+    delta: float = 0.01,
+    bandwidth: float = 0.5,
+    ridge: float = 0.001,
+    dx_ref: np.ndarray | None = None,
+    sqp_iters: int = 3,
+    ipm_iters: int = 30,
+    terminal_at: str = "first",
+    tighten_first_step: bool = True,
+    dtype=torch.float64,
+    rho: float = 1e4,
+    device=None,
+):
+    """LBMPC SQP whose subproblems run in stage form (ops/sparse_gn.py):
+    each Gauss-Newton step is a Riccati-factored Mehrotra IPM over the
+    dual-trajectory stage variables instead of a dense condensed QP — O(N)
+    per Newton system instead of O((Nm)^3). `qp` gives only the layout
+    (N, n, m, nz) and the shared residual stack. Ref: the lifted DMS NLPs
+    the reference hands to IPOPT (examples/DMS_LBMPC_casadi.m:122-130).
+
+    Returns solve(dx0 (B, n), window, z_ws (B, nz)) -> (z, converged (B,))
+    — the contract and the cost/constraint semantics of make_lbmpc_solver.
+    Each SQP iteration linearizes the learned rollout (the NW value and its
+    closed-form Jacobian) and the nominal one, solves the GN subproblem, and
+    steps by the first of the step sizes (1, 1/2, 1/4, 1/8, 1/16) that
+    passes the Armijo test on the l1 merit cost + rho * violation, per lane;
+    a lane where none passes takes no step. A non-finite step is zeroed only
+    after the ladder has run on it, so it fails every rung and steps 0.
+    `converged` is the last SQP iteration's QP flag."""
+    from lbmpc_tpu_torch.ops.sparse_gn import make_stage_gn, solve_sparse_gn
+
+    dev = resolve_device(device)
+    N, n, m = qp.N, qp.n, qp.m
+    sg = make_stage_gn(A, B, Ks, np.asarray(w.Lq).T @ np.asarray(w.Lq),
+                       np.asarray(w.Lr).T @ np.asarray(w.Lr),
+                       np.asarray(w.Lp).T @ np.asarray(w.Lp),
+                       float(w.sqrtT) ** 2, w.LAMBDA, w.PSI, cs, N, delta,
+                       family=family, terminal_at=terminal_at,
+                       tighten_first_step=tighten_first_step, dtype=dtype,
+                       device=dev)
+    t = lambda a: torch.as_tensor(np.asarray(a, float), dtype=dtype, device=dev)
+    Ad, Bd = t(A), t(B)
+    Ksd = t(np.atleast_2d(Ks)) if family == "fmincon" else t(np.zeros((m, n)))
+    An = Ad + Bd @ Ksd
+    LAM, PSI = t(w.LAMBDA), t(w.PSI)
+    xs_ref = t(np.zeros(n) if dx_ref is None else dx_ref)
+    T2 = 2.0 * float(w.sqrtT) ** 2
+    residual, _ = make_residual_and_jac(
+        qp, A, B, Ks, w, family=family, delta=delta, bandwidth=bandwidth,
+        ridge=ridge, dx_ref=dx_ref, dtype=dtype, device=dev)
+    # selector rows: dxi/dxl = [e1; e2; Ks or 0], dxi/dc = [0; 0; I]
+    Exl = torch.cat([torch.eye(2, n, dtype=dtype, device=dev), Ksd], dim=0)  # (3, n)
+    cm = sg.cost_mask[:, None]
+
+    def nominal(cvals, dx0):
+        """x_0..x_N of the nominal rollout (B, N+1, n)."""
+        xs = [dx0]
+        for k in range(N):
+            xs.append(xs[-1] @ An.mT + cvals[:, k] @ Bd.mT)
+        return torch.stack(xs, 1)
+
+    def linearize(z, dx0, window):
+        Bsz = z.shape[0]
+        cvals = z[:, :N * m].reshape(Bsz, N, m)
+        theta = z[:, N * m:]
+        xl = dx0
+        Als, Bls, xls, us = [], [], [], []
+        for k in range(N):
+            u = xl @ Ksd.mT + cvals[:, k]
+            gv, Jg = nw_estimate_and_jac(make_xi(xl, u), window, bandwidth, ridge)
+            Als.append(An + Jg @ Exl)
+            Bls.append(Bd + Jg[..., 2:3])
+            xls.append(xl)
+            us.append(u)
+            xl = xl @ Ad.mT + u @ Bd.mT + gv
+        xls, us, xlN = torch.stack(xls, 1), torch.stack(us, 1), xl
+        xn_all = nominal(cvals, dx0)
+
+        # GN linear terms (the pre-doubled convention of StageGNQP's blocks)
+        ex = xls - (theta @ LAM.mT)[:, None]              # (B, N, n)
+        eu = us - (theta @ PSI.mT)[:, None]               # (B, N, m)
+        eN = xlN - theta @ LAM.mT
+        q_stage = cm * (ex @ sg.Qb.mT + eu @ (sg.Ks.mT @ sg.Rb).mT)
+        q_xl = torch.cat([q_stage, (eN @ sg.Pb.mT)[:, None]], dim=1)
+        r_c = cm * (eu @ sg.Rb.mT)
+        g_th = (-((ex * cm).sum(1) @ sg.Qb.mT) @ LAM
+                - ((eu * cm).sum(1) @ sg.Rb.mT) @ PSI
+                - (eN @ sg.Pb.mT) @ LAM
+                + theta @ sg.TLL.mT
+                - T2 * (xs_ref @ LAM))
+        hx_t = sg.h_x - xn_all[:, 1:] @ sg.F_x.mT
+        hu_t = sg.h_u - (cvals + xn_all[:, :N] @ Ksd.mT) @ sg.F_u.mT
+        hd_t = sg.h_d - xn_all[:, 1] @ sg.F_d.mT
+        hw_t = sg.h_w - xn_all[:, sg.kT] @ sg.Fw_x.mT - theta @ sg.Fw_th.mT
+        return (torch.stack(Als, 1), torch.stack(Bls, 1), q_xl, r_c, g_th,
+                hx_t, hu_t, hd_t, hw_t)
+
+    def viol_of(z, dx0):
+        Bsz = z.shape[0]
+        cvals = z[:, :N * m].reshape(Bsz, N, m)
+        theta = z[:, N * m:]
+        xn_all = nominal(cvals, dx0)
+        vx = torch.clamp(xn_all[:, 1:] @ sg.F_x.mT - sg.h_x, min=0.0)
+        vu = torch.clamp((cvals + xn_all[:, :N] @ Ksd.mT) @ sg.F_u.mT - sg.h_u, min=0.0)
+        vd = torch.clamp(xn_all[:, 1] @ sg.F_d.mT - sg.h_d, min=0.0)
+        vw = torch.clamp(xn_all[:, sg.kT] @ sg.Fw_x.mT + theta @ sg.Fw_th.mT - sg.h_w,
+                         min=0.0)
+        return (lane_sum((vx * sg.srow_mask[:, None]).flatten(1))
+                + lane_sum((vu * sg.urow_mask[:, None]).flatten(1))
+                + lane_sum(vd) + lane_sum(vw))
+
+    def solve(dx0, window: DataWindow, z_ws):
+        dx0 = dx0.to(dev, dtype)
+        window = window.to(dtype, dev)
+        z = z_ws.to(dev, dtype)
+        Bsz = dx0.shape[0]
+        k = len(_ALPHAS) + 1
+        tile = lambda a: a.repeat((k,) + (1,) * (a.ndim - 1))
+        dx0_k, win_k = tile(dx0), DataWindow(*(tile(a) for a in window))
+
+        def cost(zs):
+            e = residual(zs, dx0, window)
+            return lane_sum(e * e)
+
+        conv = None
+        for _ in range(sqp_iters):
+            sol = solve_sparse_gn(sg, *linearize(z, dx0, window), iters=ipm_iters)
+            d = torch.cat([sol.dC.reshape(Bsz, -1), sol.dth], dim=1)
+            conv = sol.converged
+            # lanes are independent: the gradient of the lane sum holds each
+            # lane's own
+            g_z = torch.func.grad(lambda zz: cost(zz).sum())(z)
+            # the merit at z and at every step size, in one rollout
+            zs = torch.cat([z] + [z + a * d for a in _ALPHAS])
+            e = residual(zs, dx0_k, win_k)
+            viol = viol_of(zs, dx0_k)
+            merit = (lane_sum(e * e) + rho * viol).reshape(k, Bsz)
+            m0 = merit[0]
+            dirderiv = (g_z * d).sum(dim=1) - rho * viol[:Bsz]
+            accepted = torch.zeros(Bsz, dtype=torch.bool, device=dev)
+            alpha_sel = torch.zeros(Bsz, dtype=dtype, device=dev)
+            for i, a in enumerate(_ALPHAS):
+                ok = ~accepted & (merit[i + 1] <= m0 + 1e-4 * a * dirderiv)
+                alpha_sel = torch.where(ok, a, alpha_sel)
+                accepted = accepted | ok
+            d = torch.where(torch.isfinite(d), d, 0.0)
+            z = z + alpha_sel[:, None] * d
+        return z, conv
+
+    solve.linearize = linearize
     return solve
 
 

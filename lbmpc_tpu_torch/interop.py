@@ -3,8 +3,9 @@
 `from_reference(obj)` takes an object of the JAX package — duck-typed by its
 attribute names, never imported — and returns the port's version: the host
 objects (OCPMatrices, ConstraintSet, CondensedQP, LBMPCWeights) as float64
-numpy, a DataWindow as tensors on the given device. Tests use it to feed both
-packages the same matrices.
+numpy, a DataWindow and the stage-form data (StageQP, StageGNQP) as tensors
+on the given device (N and kT stay ints). Tests use it to feed both packages
+the same matrices.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from lbmpc_tpu_torch.controllers.condensed import CondensedQP
 from lbmpc_tpu_torch.controllers.lbmpc import LBMPCWeights
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.models.linear import DLTIModel
+from lbmpc_tpu_torch.ops.sparse_gn import StageGNQP
+from lbmpc_tpu_torch.ops.sparse_ipm import StageQP
 from lbmpc_tpu_torch.oracle import DataWindow
 from lbmpc_tpu_torch.sets.terminal import ConstraintSet
 from lbmpc_tpu_torch.synthesis import OCPMatrices
@@ -31,8 +34,20 @@ def _has(obj, *names) -> bool:
 
 def from_reference(obj, device=None, dtype=None):
     """The port's counterpart of a reference object (see module docstring).
-    `device` and `dtype` apply to a DataWindow's tensors; dtype defaults to
-    the precision the window arrives in."""
+    `device` and `dtype` apply to the tensors of a DataWindow, StageQP or
+    StageGNQP; dtype defaults to the precision the arrays arrive in."""
+    for cls, names in ((StageGNQP, ("cost_mask", "kT", "TLL")),
+                       (StageQP, ("Qb", "Tb", "Fw_th"))):
+        if _has(obj, *names):
+            dev = resolve_device(device)
+
+            def f(a):
+                a = np.asarray(a)
+                dt = dtype or (torch.float64 if a.dtype == np.float64 else torch.float32)
+                return torch.as_tensor(np.array(a), dtype=dt, device=dev)
+
+            return cls(**{k: (int(getattr(obj, k)) if k in ("N", "kT")
+                              else f(getattr(obj, k))) for k in cls._fields})
     if _has(obj, "Klqr", "Mtheta", "LAMBDA_0"):
         return OCPMatrices(**{f: (float(getattr(obj, f)) if f == "T"
                                   else _np(getattr(obj, f)))

@@ -8,9 +8,13 @@ per-problem solver (controllers/lmpc on ops/ipm,
 controllers/lbmpc.make_lbmpc_solver, or controllers/nmpc.make_nmpc_solver
 with the tracking and regulation presets) and the single-scenario episodes
 on the `condensed` backend (ref: examples/LBMPC_RunExample.m:10-107,
-DMS_LBMPC_casadi.m:13-160). `build_fleet_episode` runs a fmincon-family
-cohort through the batch-level SQP. The stage-wise `sparse*` backends
-(ROADMAP §1) are not ported and raise.
+DMS_LBMPC_casadi.m:13-160). The stage-wise backends serve long horizons:
+qp_backend="sparse" runs the casadi-family tracking LMPC on ops/sparse_ipm
+and the LBMPC SQP's subproblems on ops/sparse_gn
+(controllers/lbmpc.make_lbmpc_solver_sparse); "sparse_parallel" runs the
+LMPC on the associative-scan Riccati. On CUDA their solves replay a CUDA
+graph (graph_solve). `build_fleet_episode` runs a fmincon-family cohort
+through the batch-level SQP.
 """
 
 from __future__ import annotations
@@ -26,12 +30,14 @@ from lbmpc_tpu_torch.controllers.condensed import (CondensedQP, build_casadi_dms
                                                    build_casadi_dms_k,
                                                    build_fmincon_lmpc)
 from lbmpc_tpu_torch.controllers.lbmpc import (LBMPCWeights, make_casadi_warm_start,
-                                               make_lbmpc_solver)
+                                               make_lbmpc_solver,
+                                               make_lbmpc_solver_sparse)
 from lbmpc_tpu_torch.controllers.lmpc import make_lmpc_solver
-from lbmpc_tpu_torch.controllers.nmpc import make_nmpc_solver
+from lbmpc_tpu_torch.controllers.nmpc import _Graphed, make_nmpc_solver
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.models.mgcm import (mg2_dlti, mg2_ode, mgcm_dlti, rk4_step,
                                          rk23_step)
+from lbmpc_tpu_torch.ops.sparse_ipm import make_stage_qp, peak_bytes, solve_sparse
 from lbmpc_tpu_torch.oracle import DataWindow, init_window
 from lbmpc_tpu_torch.runtime.closed_loop import (ClosedLoopResult, run_closed_loop,
                                                  run_closed_loop_batched)
@@ -107,10 +113,21 @@ class Scenario:
 
     def run_batch(self, dx_inits) -> ClosedLoopResult:
         """Independent episodes from the rows of dx_inits (B, n), advanced
-        together (histories batch-first, as the reference's vmap)."""
+        together (histories batch-first, as the reference's vmap).
+        sparse_parallel refuses a batch whose associative scan would not fit
+        the card (sparse_parallel_limit)."""
         p = self._episode_parts
         dx = torch.as_tensor(dx_inits, dtype=p["dtype"], device=p["device"])
         Bsz = dx.shape[0]
+        if self.cfg.solver.qp_backend == "sparse_parallel":
+            limit = sparse_parallel_limit(self, p["device"], p["dtype"])
+            lane_stages = Bsz * self.cfg.ocp.N
+            if limit is not None and lane_stages > limit:
+                raise ValueError(
+                    f"sparse_parallel: batch x N = {lane_stages} lane-stages "
+                    f"exceeds the {limit} this device's memory holds "
+                    f"({SPARSE_PARALLEL_MARGIN:.0%} of it for the solve); use "
+                    "qp_backend='sparse' for large batches")
         win = init_window(self.cfg.oracle.q, d_out=self.cfg.oracle.d_out,
                           dtype=p["dtype"], batch=(Bsz,), device=p["device"])
         return run_closed_loop_batched(
@@ -120,14 +137,102 @@ class Scenario:
             log_post_state=self.cfg.controller != "lbmpc", lane_exact=p["lane_exact"])
 
 
+# The share of the card's memory a sparse_parallel batch may fill with its
+# solve (the rest: the closed loop's histories, the allocator's slack and
+# other work on the card).
+SPARSE_PARALLEL_MARGIN = 0.5
+
+
+def _device_memory(dev) -> int | None:
+    """The card's memory in bytes; None off CUDA (no guard)."""
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(dev).total_memory
+
+
+def sparse_parallel_limit(sc: Scenario, dev, dtype) -> int | None:
+    """The most lane-stages (batch x N) a sparse_parallel solve may run on
+    `dev`: SPARSE_PARALLEL_MARGIN of the card's memory over the solve's peak
+    bytes per lane-stage (ops/sparse_ipm.peak_bytes: the associative scan's
+    five element arrays at every level of its recursion, and the IPM's state
+    beside them; chip_smoke.py holds the model to torch.cuda's peak at two
+    batch sizes: the allocator's peak was 0.72 of the model at B = 256 and
+    1024). On an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (85,017,493,504
+    bytes) that is 5,600,050 lane-stages in float64 at N=50 (112,001 lanes)
+    and 11,200,150 in float32 (chip_smoke.py phase 34); None off CUDA. The
+    reference's limit (51,200) was a TPU worker's envelope and is not
+    carried over."""
+    total = _device_memory(dev)
+    if total is None:
+        return None
+    N, n, m = sc.cfg.ocp.N, sc.qp.n, sc.qp.m
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    rows = (len(sc.cs.h_x), len(sc.cs.h_u), len(sc.cs.h_w_N))
+    per_lane = peak_bytes(1, N, n, m, np.atleast_2d(sc.ocp.LAMBDA).shape[1], rows,
+                          itemsize, parallel=True)
+    return int(SPARSE_PARALLEL_MARGIN * total // per_lane) * N
+
+
+def graph_solve(solve, dtype, dev, window: bool):
+    """A stage-wise backend's solve on CUDA, captured in a CUDA graph at its
+    first call for each batch size and replayed after (controllers/nmpc
+    ._Graphed): a solve is ~10^5 small operations in sequence, which the
+    host's dispatch would otherwise bound, and none of them reads the
+    device (the 1 x 1 Riccati and Schur pivots are divisions, the scan's
+    linear solves check nothing on the host). window=False for the LMPC,
+    which reads dx alone. The eager solve stays as `.eager`, on the same
+    device."""
+
+    def unpack(dx, *rest):
+        return solve(dx, DataWindow(*rest[:4]), rest[4]) if window else solve(dx, None, None)
+
+    g = _Graphed(lambda *a: (unpack(*a), torch.zeros((), dtype=torch.bool, device=dev)),
+                 unpack)
+
+    def graphed(dx, win, z_ws):
+        dx = dx.to(dev, dtype)
+        if not window:
+            return g(dx)
+        return g(dx, *win.to(dtype, dev), z_ws.to(dev, dtype))
+
+    graphed.eager = solve
+    return graphed
+
+
+def check_backend(cfg: ScenarioConfig) -> None:
+    """The reference's build-time refusals of a qp_backend
+    (ref: scenario.py:79-96, :168-176): the stage-wise backends serve LMPC
+    ('sparse', 'sparse_parallel'; the casadi-family tracking form with the
+    terminal set at x_N and no tightened first step) and LBMPC ('sparse');
+    not NMPC, and not dtype='mixed'."""
+    backend = cfg.solver.qp_backend
+    if backend == "condensed":
+        return
+    if backend not in ("sparse", "sparse_parallel"):
+        raise ValueError(f"qp_backend={backend!r}")
+    if cfg.controller == "nmpc" or (cfg.controller == "lbmpc"
+                                    and backend == "sparse_parallel"):
+        raise ValueError(
+            f"qp_backend={backend!r} is not supported for "
+            f"controller={cfg.controller!r}; sparse LBMPC uses "
+            "qp_backend='sparse', NMPC uses 'condensed'")
+    if cfg.solver.dtype == "mixed":
+        raise ValueError(
+            "dtype='mixed' (f32 IPM + f64 refinement) is a condensed-path "
+            "feature; use dtype='float32' or 'float64' with sparse backends")
+    if cfg.controller == "lmpc" and (cfg.family != "casadi" or cfg.ocp.terminal_at != "last"
+                                     or cfg.ocp.tighten_first_step):
+        raise ValueError(
+            "sparse QP backend supports casadi-family tracking LMPC "
+            "(terminal_at='last', tighten_first_step=False)")
+
+
 def _episode_parts(sc: Scenario) -> dict:
     """The solver, plant, warm start and loop constants of build_scenario's
-    episodes (ref: scenario.py:165-272), on the condensed backend."""
+    episodes (ref: scenario.py:165-272), on the condensed or a stage-wise
+    backend."""
     cfg, p = sc.cfg, sc.cfg.plant
     backend = cfg.solver.qp_backend
-    if backend != "condensed":
-        raise ValueError(f"qp_backend={backend!r}: the stage-wise Riccati backends "
-                         "are not ported yet (ROADMAP §1 item 2); use 'condensed'")
     dev = resolve_device(sc.device)
     mixed = cfg.solver.dtype == "mixed"
     dtype = (torch.float32 if cfg.solver.dtype == "float32" and cfg.controller != "nmpc"
@@ -142,12 +247,28 @@ def _episode_parts(sc: Scenario) -> dict:
     if cfg.family == "casadi":
         warm = make_casadi_warm_start(sc.qp, sc.A, sc.B, sc.ocp.Ks, dtype=dtype, device=dev)
     if cfg.controller == "lmpc":
-        lin_solve = make_lmpc_solver(sc.qp, ipm_iters=ipm, dtype=dtype, mixed=mixed,
-                                     device=dev)
+        if backend != "condensed":
+            # the stage-form Riccati IPM: the casadi-family tracking OCP with
+            # the terminal set at x_N and no first-step tightening
+            # (check_backend)
+            stage_qp = make_stage_qp(sc.A, sc.B, sc.ocp.Q, sc.ocp.R, sc.ocp.P, sc.ocp.T,
+                                     sc.ocp.LAMBDA, sc.ocp.PSI, sc.cs, cfg.ocp.N,
+                                     delta=p.ts, dtype=dtype, device=dev)
+            par = backend == "sparse_parallel"
 
-        def solve(dx, window, z_ws):
-            z, sol = lin_solve(dx)
-            return z, sol.converged
+            def solve(dx, window, z_ws):
+                sol = solve_sparse(stage_qp, dx, iters=ipm, parallel=par)
+                return torch.cat([sol.U.flatten(1), sol.theta], dim=1), sol.converged
+
+            if dev.type == "cuda":
+                solve = graph_solve(solve, dtype, dev, window=False)
+        else:
+            lin_solve = make_lmpc_solver(sc.qp, ipm_iters=ipm, dtype=dtype, mixed=mixed,
+                                         device=dev)
+
+            def solve(dx, window, z_ws):
+                z, sol = lin_solve(dx)
+                return z, sol.converged
 
         # LMPC ignores the window; the MX_LBMPC variant still collects data
         learn = cfg.collect_data
@@ -161,6 +282,16 @@ def _episode_parts(sc: Scenario) -> dict:
             P_term=np.asarray(REG_P) if cfg.ocp.regulation else None,
             ellipsoid_alpha=cfg.ocp.ellipsoid_alpha, dtype=dtype, device=dev)
         learn = False
+    elif backend == "sparse":
+        solve = make_lbmpc_solver_sparse(
+            sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, sc.cs, family=cfg.family, delta=p.ts,
+            bandwidth=cfg.oracle.bandwidth, ridge=cfg.oracle.ridge,
+            dx_ref=np.asarray(cfg.dx_ref), sqp_iters=cfg.solver.sqp_iters, ipm_iters=ipm,
+            terminal_at=cfg.ocp.terminal_at,
+            tighten_first_step=cfg.ocp.tighten_first_step, dtype=dtype, device=dev)
+        if dev.type == "cuda":
+            solve = graph_solve(solve, dtype, dev, window=True)
+        learn = cfg.learn_online
     else:
         solve = make_lbmpc_solver(
             sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, family=cfg.family, delta=p.ts,
@@ -187,6 +318,7 @@ def build_scenario(name_or_cfg, ipm_iters: int | None = None, device=None) -> Sc
            else make_preset(name_or_cfg))
     if cfg.controller not in ("lbmpc", "lmpc", "nmpc"):
         raise ValueError(f"controller={cfg.controller!r}")
+    check_backend(cfg)
     p = cfg.plant
     mg2 = p.model == "mg2"
     A, B, C, _ = (mg2_dlti if mg2 else mgcm_dlti)(p.ts)

@@ -150,9 +150,12 @@ def test_mono_fleet_matches_reference_xla_fleet(monkeypatch):
 def test_fleet_rejects_what_is_not_ported():
     """What stays unported or unsupported raises: the warm chain without
     qp_warm or off the kernel route, the casadi family's and the NMPC's fleet
-    episode, and the stage-wise sparse backends. The NMPC presets' setup is
-    ported (tests/test_torch_nmpc.py). The fleet's signature is the
-    reference's: no repair_backend keyword (the route picks the repair)."""
+    episode, and the stage-wise backend the reference refuses for LBMPC
+    (sparse_parallel). The NMPC presets' setup is ported
+    (tests/test_torch_nmpc.py), and so are the sparse backends
+    (tests/test_torch_sparse_ipm.py, tests/test_torch_sparse_gn.py). The
+    fleet's signature is the reference's: no repair_backend keyword (the
+    route picks the repair)."""
     cfg = _small(lt.make_preset)
     with pytest.raises(TypeError, match="repair_backend"):
         t_scenario.build_fleet_episode(cfg, backend="hybrid", repair_backend="fused",
@@ -167,6 +170,6 @@ def test_fleet_rejects_what_is_not_ported():
         t_scenario.build_fleet_episode(lt.make_preset("NMPC_N20"), device="cpu")
     assert t_scenario.build_scenario(lt.make_preset("NMPC_N20")).nz == 21
     sparse = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
-                                                                 qp_backend="sparse"))
-    with pytest.raises(ValueError, match="§1 item 2"):
-        t_scenario.build_scenario(sparse, device="cpu").run()
+                                                                 qp_backend="sparse_parallel"))
+    with pytest.raises(ValueError, match="sparse_parallel"):
+        t_scenario.build_scenario(sparse, device="cpu")

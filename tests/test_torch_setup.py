@@ -159,9 +159,17 @@ def test_port_imports_no_jax_and_no_reference_package():
         "assert bool(conv.all()) and z.dtype == torch.float64\n"
         "from lbmpc_tpu_torch.oracle import window_from_arrays\n"
         "assert int(window_from_arrays([[0.0] * 5] * 3, [[0.0] * 5] * 4, device='cpu').count) == 5\n"
+        "import dataclasses\n"
+        "cfg = lbmpc_tpu_torch.make_preset('DMS_LMPC')\n"
+        "cfg = dataclasses.replace(cfg, ocp=dataclasses.replace(cfg.ocp, N=8),\n"
+        "    solver=dataclasses.replace(cfg.solver, qp_backend='sparse_parallel'))\n"
+        "z, conv = build_scenario(cfg, device='cpu').solve(\n"
+        "    torch.tensor([[-0.35, -0.4, 0.0, 0.0]]), None, None)\n"
+        "assert bool(conv.all()) and z.shape == (1, 9)\n"
         "for m in ('ops.chol_kernel', 'ops.ipm_fused', 'runtime.scenario', 'ops.ipm',\n"
         "          'ops.chol', 'ops.mono_kernel', 'controllers.sqp', 'controllers.lmpc',\n"
-        "          'controllers.nmpc', 'models.collocation', 'models.linear'):\n"
+        "          'controllers.nmpc', 'models.collocation', 'models.linear',\n"
+        "          'ops.riccati', 'ops.sparse_ipm', 'ops.sparse_gn'):\n"
         "    assert 'lbmpc_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'lbmpc_tpu' or m.startswith('lbmpc_tpu.')]\n"
@@ -173,6 +181,16 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 
 def test_tf32_is_off():
+    """Full-precision float32 products for every module of the port, the
+    stage-wise Riccati solvers included (the reference runs them at
+    Precision.HIGHEST)."""
+    import importlib
+    import pkgutil
+
+    for m in pkgutil.walk_packages(lt.__path__, "lbmpc_tpu_torch."):
+        importlib.import_module(m.name)
+    from lbmpc_tpu_torch.ops import sparse_gn, sparse_ipm  # noqa: F401
+
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
