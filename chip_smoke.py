@@ -46,7 +46,15 @@ counts set to 0 just before it and read just after:
   the DMS flagship's full width (N=100, q=100) at batch 1024 with the
   reference's sqp 2, ipm 16, and 64-lane closed loops on each sparse
   backend against the condensed one; the sparse_parallel memory guard's
-  model against the allocator's peak.
+  model against the allocator's peak;
+- the port's tooling (runtime/profiling, runtime/checkpoint, analysis,
+  controllers/tracking_sandbox): the fused solve at the bench configuration
+  on pallas_full and xla timed by the solve-time protocol against the 10 ms
+  budget, traced (the kernels' device time under their names, held to the
+  launch counters) and set against the H100 roofline; checkpoint and resume
+  of LBMPC_N40 at full width (a batch of 256 and one lane, resumed equal
+  to uninterrupted within 1e-12); the tracking sandbox's episodes on the
+  card against the CPU, and response_info on the card against the CPU.
 It times the kernels, their plain versions, the library yardsticks, the
 solves and the fleet steps with CUDA events (K2 and K3 at batch 2048, the
 cohort and the repair's K, with their registers, spills and lanes an SM;
@@ -61,7 +69,7 @@ identical lanes identical for all its steps (phase 29).
 
     python3 chip_smoke.py                 # every phase (needs one card)
     python3 chip_smoke.py --stop-after 3  # build + K1/K2 checks only
-    python3 chip_smoke.py --profile       # + torch.profiler traces of 3 steps of each fleet
+    python3 chip_smoke.py --profile       # + device traces of 3 steps of each fleet
 
 Exits non-zero, and prints no result, without CUDA or outside a checkout
 of the repository; any failed phase raises. The last line of standard output
@@ -97,8 +105,10 @@ GOLDEN_F32_HELD = 40         # the steps the float32 hybrid is held to the golde
 NMPC_BATCH, NMPC_BATCH_STEPS = 1024, 10
 SPARSE_BATCH = 1024           # the sparse LMPC's batch (phase 34)
 SPARSE_LOOP_LANES, SPARSE_LOOP_STEPS = 64, 4
+CK_BATCH, CK_STEPS = 256, 20  # phase 38's checkpointed batch and steps
+PROTOCOL_RUNS, PROTOCOL_ITERS = 5, 20   # phase 37's solve_time_protocol
 KERNELS_PHASE = 33            # the kernels line, printed last
-LAST_PHASE = 36
+LAST_PHASE = 39
 
 
 def log(msg: str) -> None:
@@ -616,6 +626,15 @@ def run_phases(dev, card: str, kind: str, args) -> int:
     if args.stop_after >= 34:
         sparse_phases(dev, tag, args)
         log(f"  wall time so far {time.time() - t_start:.1f} s")
+    if args.stop_after >= 37:
+        tooling_phase(dev, tag, cfg, sc)
+        log(f"  wall time so far {time.time() - t_start:.1f} s")
+    if args.stop_after >= 38:
+        ck = checkpoint_phase(dev, tag)
+        log(f"  wall time so far {time.time() - t_start:.1f} s")
+        if args.stop_after >= 39:
+            sandbox_phase(dev, tag, ck)
+            log(f"  wall time so far {time.time() - t_start:.1f} s")
     return finish(card, kind, kernels, args)
 
 
@@ -2616,10 +2635,9 @@ def sparse_states(cfg, B: int, seed: int):
     return dx
 
 
-def no_kernel_launched(what: str) -> None:
+def no_kernel_launched(what: str, why: str = "the stage-wise path has none") -> None:
     counts = {**route_counts(), **chol_counts()}
-    require(not any(counts.values()), f"{what}: no kernel launched (the stage-wise path has "
-            f"none; {counts})")
+    require(not any(counts.values()), f"{what}: no kernel launched ({why}; {counts})")
 
 
 def sparse_phases(dev, tag: str, args) -> None:
@@ -2821,29 +2839,296 @@ def sparse_phases(dev, tag: str, args) -> None:
     log(f"  phase 36 took {time.time() - t_phase:.1f} s")
 
 
-def profile_fleet(cfg, fleet_kw: dict, dx_init, tag: str) -> None:
-    """torch.profiler over a 3-step fleet episode at the cohort: device time
-    by kernel name and the device's busy share of the host wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+KERNEL_PATTERNS = {          # the kernels' names in a device trace
+    "gn_phase": r"gn_phase_kernel",
+    "mehrotra_h": r"mehrotra_h_kernel",
+    "chol_factor_solve": r"chol_(warp|block)_kernel<(\d+, )?true, true>",
+    "chol_resolve": r"chol_(warp|block)_kernel<(\d+, )?false, false>",
+}
 
+
+def trace_dir(name: str) -> pathlib.Path:
+    """Where a device trace is written: build/traces/ of the checkout (ignored
+    by git)."""
+    return ROOT / "build" / "traces" / name
+
+
+def device_rows(prof) -> list:
+    """(name, device ms, count) of the device-side events of a trace, most
+    time first: an op's row (aten::sum) repeats the time of the kernels it
+    launched, so only device events count."""
+    import torch
+
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def tooling_phase(dev, tag: str, cfg, sc) -> None:
+    """Phase 37: the port's tooling on the main path. The fused solve at the
+    bench configuration on pallas_full (K1 + K2) and on xla (K5a + K5c):
+    analysis/solve_stats' protocol (runtime/profiling.solve_time_protocol)
+    against the 10 ms budget, a device trace of three calls
+    (runtime/profiling.device_trace) holding the kernels' names to their
+    launch counters, and the H100 Roofline of the analytic count
+    (analysis/roofline, as bench.py:222-240 counts)."""
+    import re
+
+    import torch
+
+    from lbmpc_tpu_torch.analysis.roofline import (Roofline, assembly_mac_ratio,
+                                                   fused_sqp_flops_per_solve,
+                                                   fused_sqp_op_split, program_costs)
+    from lbmpc_tpu_torch.controllers.sqp_fused import make_lbmpc_solver_fused
+    from lbmpc_tpu_torch.runtime.profiling import device_trace, solve_time_protocol
+
+    t_phase = time.time()
+    log(f"phase 37: the tooling on the main path: the fused solve at the bench configuration "
+        f"(batch {BATCH}, sqp 2, ipm {IPM_SCHED}, ladders {LADDER}, qp_warm) on pallas_full and "
+        f"xla: SolveStats ({PROTOCOL_RUNS} x {PROTOCOL_ITERS}), a device trace of 3 calls, the "
+        "H100 Roofline")
+    dx, win, _ = bench_inputs(np.random.default_rng(37), BATCH, sc.nz, dev)
+    z0 = torch.zeros(BATCH, sc.nz, dtype=torch.float32, device=dev)
+    kw = dict(family="fmincon", delta=cfg.plant.ts, bandwidth=cfg.oracle.bandwidth,
+              ridge=cfg.oracle.ridge, dx_ref=np.asarray(cfg.dx_ref), sqp_iters=2,
+              ipm_iters=IPM_SCHED, alphas=LADDER, qp_warm=True, device=dev)
+    mI = sc.qp.G.shape[0]
+    ratio = assembly_mac_ratio(sc.qp.G)
+    # ipm_iters=5 and n_merit=2: the per-GN averages of the (8, 2) schedule and
+    # the ladders (1,), (1, .5, .25), whose totals the model's linearity keeps
+    count_kw = dict(sqp_iters=2, ipm_iters=sum(IPM_SCHED) / len(IPM_SCHED), n_merit=2, N=N,
+                    n=4, m=1, q=Q, mc=mI, ne=(N - 2) * 5 + 8, nz=sc.nz, kkt_mac_ratio=ratio)
+    flops = fused_sqp_flops_per_solve(**count_kw)
+    split = fused_sqp_op_split(**count_kw)
+    log(f"  analytic count (fused_sqp_flops_per_solve, kkt_mac_ratio {ratio:.6f}): "
+        f"{flops['total']:.6g} flop a solve, matmul {split['matmul']:.6g}, elementwise "
+        f"{split['elementwise']:.6g}")
+    routes = {"pallas_full": ("gn_phase", "mehrotra_h"),
+              "xla": ("chol_factor_solve", "chol_resolve")}
+    # the profiler's first start (CUPTI's set-up) outside the traced calls
+    with device_trace(trace_dir("warm_up")):
+        torch.ones(1, device=dev).add_(1)
+    for route, names in routes.items():
+        solver = make_lbmpc_solver_fused(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, qp_kernel=route,
+                                         **kw)
+        args = (dx, win, z0)
+        stats, samples = solve_time_protocol(solver, args, runs=PROTOCOL_RUNS,
+                                             iters=PROTOCOL_ITERS)
+        log(f"  {route}: SolveStats over {stats.n} calls of {BATCH} solves (host clock, each "
+            f"call synchronized): median {stats.median_ms:.4f} ms, mean {stats.mean_ms:.4f}, "
+            f"CI95 [{stats.ci95_ms[0]:.4f}, {stats.ci95_ms[1]:.4f}], p99 {stats.p99_ms:.4f}, "
+            f"max {stats.max_ms:.4f}; 10 ms budget "
+            f"{'violated' if stats.violates_budget(10.0) else 'held'} (p99); "
+            f"{BATCH / (stats.median_ms * 1e-3):.6g} solves/s {tag}")
+        require(samples.shape == (PROTOCOL_RUNS, PROTOCOL_ITERS) and bool(np.isfinite(samples).all()),
+                f"{route}: the protocol's samples are ({PROTOCOL_RUNS}, {PROTOCOL_ITERS}), finite")
+        sync(dev)
+        zero_counts()
+        t0 = time.time()
+        with device_trace(trace_dir(route)) as prof:
+            for _ in range(3):
+                z, conv = solver(*args)
+        wall_ms = (time.time() - t0) * 1e3
+        launches = {**route_counts(), **chol_counts()}
+        rows = device_rows(prof)
+        busy = sum(r[1] for r in rows)
+        log(f"  {route} trace: 3 calls, wall {wall_ms:.3f} ms (profiler on), device busy "
+            f"{busy:.3f} ms ({100 * busy / wall_ms:.2f}% of the traced wall; a call's "
+            f"{busy / 3:.3f} ms is {100 * busy / 3 / stats.median_ms:.2f}% of the protocol's "
+            f"median call), {sum(r[2] for r in rows)} device ops, trace "
+            f"{(trace_dir(route) / 'trace.json').stat().st_size} B {tag}")
+        for key, ms, cnt in rows[:8]:
+            log(f"    {ms:9.3f} ms  {cnt:6d}x  {key[:100]}")
+        for name in names:
+            hit = [r for r in rows if re.search(KERNEL_PATTERNS[name], r[0])]
+            ms, cnt = sum(r[1] for r in hit), sum(r[2] for r in hit)
+            log(f"  {route} {name}: traced {cnt} launches, {ms:.4f} ms of device time; "
+                f"launch counter {launches[name]}")
+            require(cnt > 0 and ms > 0 and cnt == launches[name],
+                    f"{route}: the trace shows {name}'s device time, its launches equal to "
+                    "the launch counter's")
+        others = {k: v for k, v in launches.items() if k not in names and v}
+        require(not others, f"{route}: no other kernel launched ({others})")
+        require(bool(torch.isfinite(z).all()) and conv.float().mean().item() >= 0.99,
+                f"{route}: the traced solve finite, conv >= 0.99")
+        torch_flops, byts = program_costs(solver, *args)
+        rl = Roofline(flops_per_call=flops["total"] * BATCH, bytes_per_call=byts,
+                      call_s=stats.median_ms * 1e-3, solves_per_call=BATCH,
+                      matmul_flops_per_call=split["matmul"] * BATCH,
+                      elementwise_flops_per_call=split["elementwise"] * BATCH)
+        log(f"  {route} Roofline (analytic flops at the median call, bytes of the call's "
+            f"inputs and outputs): {json.dumps(rl.as_dict())}; torch's own products in a "
+            f"call (FlopCounterMode, the kernels unseen): {torch_flops:.6g} flop {tag}")
+    log(f"  phase 37 took {time.time() - t_phase:.1f} s")
+
+
+def checkpoint_phase(dev, tag: str):
+    """Phase 38: checkpoint and resume on the card. LBMPC_N40 at full width
+    (N=40, q=100, float64, the preset's solver), CK_BATCH seeded states
+    around dx_init: CK_STEPS steps uninterrupted against half of them, a
+    save / load through a file, and resume for the rest; then one lane
+    through the single-lane path. Returns the uninterrupted batch's
+    result."""
+    import torch
+
+    import lbmpc_tpu_torch as lt
+    from lbmpc_tpu_torch.runtime.checkpoint import capture, load, resume, save
+    from lbmpc_tpu_torch.runtime.scenario import build_scenario
+
+    t_phase = time.time()
+    cfg = lt.make_preset("LBMPC_N40", iterations=CK_STEPS)
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, dtype="float64"))
+    half = CK_STEPS // 2
+    log(f"phase 38: checkpoint and resume, LBMPC_N40 (N={cfg.ocp.N}, q={cfg.oracle.q}, "
+        f"float64, sqp {cfg.solver.sqp_iters}, ipm {cfg.solver.ipm_iters}), batch {CK_BATCH}: "
+        f"{CK_STEPS} steps against {half} + save / load + resume {CK_STEPS - half}; then one lane")
+    sc = build_scenario(cfg, device=dev)
+    sc_half = build_scenario(dataclasses.replace(cfg, iterations=half), device=dev)
+    dx = (np.asarray(cfg.dx_init)
+          + 0.005 * np.random.default_rng(38).standard_normal((CK_BATCH, 4)))
+    path = ROOT / "build" / "checkpoints" / "phase38.npz"
+    out = {}
+    for name, runner, lanes in (("batch", "run_batch", dx), ("one lane", "run", dx[0])):
+        zero_counts()
+        t0 = time.time()
+        full = getattr(sc, runner)(lanes)
+        sync(dev)
+        t_full = time.time() - t0
+        t0 = time.time()
+        part1 = getattr(sc_half, runner)(lanes)
+        save(path, capture(part1, step=half), meta={"preset": cfg.name})
+        state, meta = load(path)
+        part2 = resume(sc, state, steps=CK_STEPS - half)
+        sync(dev)
+        t_parts = time.time() - t0
+        no_kernel_launched(f"checkpoint {name}", "the float64 per-problem SQP has none")
+        joined = torch.cat([part1.sys_history, part2.sys_history[..., 1:, :]], dim=-2)
+        pairs = {"sys_history": (joined, full.sys_history),
+                 "final_x": (part2.final_x, full.final_x),
+                 "final_window.Y": (part2.final_window.Y, full.final_window.Y)}
+        d = {k: (a - b).abs().max().item() for k, (a, b) in pairs.items()}
+        bits = all(torch.equal(a, b) for a, b in pairs.values())
+        conv = full.solver_converged.double().mean().item()
+        log(f"  {name}: uninterrupted {t_full:.2f} s ({t_full / CK_STEPS * 1e3:.1f} ms/step), "
+            f"interrupted + resumed {t_parts:.2f} s; max |d| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+            + f"; bit for bit {bits}; conv {conv:.6f}; window count "
+            f"{int(part2.final_window.count.reshape(-1)[0])} {tag}")
+        require(state.step == half and meta["preset"] == cfg.name
+                and state.x_abs.shape == tuple(np.shape(lanes)),
+                f"checkpoint {name}: the state's step, meta and shape round-trip")
+        require(bool(torch.isfinite(full.sys_history).all()) and max(d.values()) <= 1e-12,
+                f"checkpoint {name}: resumed equals uninterrupted within 1e-12")
+        require(torch.equal(part2.final_window.count, full.final_window.count)
+                and torch.equal(part2.final_window.valid, full.final_window.valid),
+                f"checkpoint {name}: the window's count and valid carry across")
+        out[name] = (cfg, full)
+    log(f"  phase 38 took {time.time() - t_phase:.1f} s")
+    return out["batch"]
+
+
+def sandbox_phase(dev, tag: str, ck) -> None:
+    """Phase 39: the tracking sandbox (controllers/tracking_sandbox) on the
+    card against the same episode on the CPU, nominal and robust; then
+    analysis/metrics.response_info on phase 38's histories on the card
+    against the same call on their CPU copy."""
+    import torch
+
+    from lbmpc_tpu_torch.analysis.metrics import response_info
+    from lbmpc_tpu_torch.controllers.tracking_sandbox import (build_tracking_setup,
+                                                              run_tracking_episode)
+
+    t_phase = time.time()
+    log("phase 39: the tracking sandbox on the card against the CPU (nominal; robust, "
+        "robust_w = w_max = 0.1, seed 7; 100 steps, float64), then response_info on phase 38's "
+        "histories")
+    cpu = torch.device("cpu")
+    for name, setup_kw, kw in (("nominal", {}, {}),
+                               ("robust", dict(robust_w=0.1),
+                                dict(w_max=0.1, disturbance_seed=7))):
+        setup = build_tracking_setup(**setup_kw)
+        zero_counts()
+        t0 = time.time()
+        res = run_tracking_episode(setup, [0.0, -2.0], iterations=100, device=dev, **kw)
+        sync(dev)
+        wall = time.time() - t0
+        no_kernel_launched(f"tracking sandbox {name}", "ops/ipm has none")
+        ref = run_tracking_episode(setup, [0.0, -2.0], iterations=100, device=cpu, **kw)
+        d = (res.sys_history.to(cpu) - ref.sys_history).abs().amax(dim=1)
+        conv, conv_c = res.converged.to(cpu), ref.converged
+        first = first_beyond((conv != conv_c).int(), 0)
+        first = 100 if first is None else first
+        log(f"  {name}: {wall * 10:.2f} ms/step (host clock); conv card {conv.double().mean():.2f} "
+            f"cpu {conv_c.double().mean():.2f}, first step converged in one only: {first}; max "
+            f"|sysH card - cpu| {d[:first + 1].max().item():.3e} to it, {d.max().item():.3e} "
+            f"over all; first row beyond 1e-9: {first_beyond(d, 1e-9)}, beyond 1e-5: "
+            f"{first_beyond(d, 1e-5)} {tag}")
+        # the QP's H is singular and where a float64 IPM lands on its optimal
+        # face turns on roundoff (tests/test_torch_tracking_sandbox.py): 1e-5,
+        # up to the first step one computation leaves unconverged and the
+        # other not, past which the two trajectories part
+        require(bool(torch.isfinite(res.sys_history).all()) and d[:first + 1].max().item() <= 1e-5,
+                f"tracking sandbox {name}: card within 1e-5 of the CPU up to the first step "
+                "converged in one only")
+        sysH = res.sys_history.to(cpu).numpy()
+        if name == "nominal":
+            ok = (conv.double().mean() >= 0.98 and abs(sysH[30, 0] - 4.95) < 0.3
+                  and abs(sysH[60, 0] + 5.5) < 0.6 and abs(sysH[90, 0] - 2.0) < 0.3
+                  and abs(sysH[100, 0]) < 0.3 and np.abs(sysH[1:, 2:]).max() <= 0.3 + 1e-6)
+        else:
+            ok = conv.double().mean() > 0.9 and np.abs(sysH[:, :2]).max() <= 5.0 + 0.15
+        require(bool(ok), f"tracking sandbox {name}: the reference test's claims hold on the card "
+                "(tests/test_tracking_sandbox.py)")
+    cfg, full = ck
+    h = full.sys_history
+    for ch in (0, 1):
+        x, u = h[..., ch], h[..., -1]
+        ref = torch.full_like(x, float(cfg.dx_ref[ch]))
+        got = response_info(x, u, ref, cfg.plant.ts)
+        want = response_info(x.to(cpu), u.to(cpu), ref.to(cpu), cfg.plant.ts)
+        d = max((a.to(cpu) - b).abs().max().item() for a, b in zip(got, want))
+        med = {k: v.median().item() for k, v in got._asdict().items()}
+        log(f"  response_info x{ch + 1} on {tuple(x.shape)} (card): medians "
+            + ", ".join(f"{k} {v:.6g}" for k, v in med.items())
+            + f"; max |card - cpu| {d:.3e} {tag}")
+        require(all(a.device == x.device and a.dtype == x.dtype for a in got) and d <= 1e-12,
+                f"response_info x{ch + 1} on the card within 1e-12 of the CPU")
+    log(f"  phase 39 took {time.time() - t_phase:.1f} s")
+
+
+def first_beyond(d, tol: float):
+    """The first index where d exceeds tol, None where it never does."""
+    far = (d > tol).nonzero()
+    return int(far[0, 0]) if far.numel() else None
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def profile_fleet(cfg, fleet_kw: dict, dx_init, tag: str) -> None:
+    """A device trace (runtime/profiling.device_trace) of a 3-step fleet
+    episode at the cohort: device time by kernel name and the device's busy
+    share of the host wall time."""
+    import torch
+
+    from lbmpc_tpu_torch.runtime.profiling import device_trace
     from lbmpc_tpu_torch.runtime.scenario import build_fleet_episode
 
     _, run = build_fleet_episode(cfg, **fleet_kw)
     run(dx_init)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace(trace_dir(f"fleet_{fleet_kw.get('qp_kernel', 'xla')}")) as prof:
         t0 = time.time()
         run(dx_init)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    # device-side events only: an op's row (aten::sum) repeats the time of
-    # the kernels it launched
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof)
     busy = sum(r[1] for r in rows)
     n_launch = sum(r[2] for r in rows)
     log(f"  profile: {cfg.iterations} steps, wall {wall_ms:.3f} ms, device busy "

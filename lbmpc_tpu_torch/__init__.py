@@ -1,8 +1,8 @@
 """lbmpc_tpu_torch — the PyTorch/CUDA port of the learning-based MPC engine.
 
 A second package beside the JAX reference (`lbmpc_tpu`), covering the LMPC,
-LBMPC and NMPC controllers, the fused LBMPC SQP solve and the warm-chain
-fleet closed loop:
+LBMPC and NMPC controllers, the fused LBMPC SQP solve, the warm-chain
+fleet closed loop, checkpoints, profiling and the analysis layer:
 
 - ``config``, ``synthesis``, ``sets``, ``controllers.condensed`` — host-side
   numpy setup (presets, matOCP synthesis, terminal sets, condensed QP);
@@ -13,10 +13,21 @@ fleet closed loop:
 - ``controllers.lbmpc`` / ``controllers.sqp_fused`` — the Gauss-Newton SQP;
 - ``controllers.nmpc`` — the NMPC (tracking and regulation) on the SQP with
   nonlinear constraints;
-- ``ops`` — the two hand-written CUDA kernels (GN phase, Mehrotra QP) with
-  their plain PyTorch versions;
-- ``runtime`` — the batched closed loop and the fleet episode builder;
-- ``interop`` — carrying the reference package's matrices across.
+- ``controllers.tracking_sandbox`` — the double-integrator tracking MPC of
+  the reference's didactic subtree (online terminal sets, nominal and tube);
+- ``ops`` — the twelve hand-written CUDA kernels (``csrc/``: the GN phase
+  K1/K1w, the Mehrotra QP with a Hessian per lane K2/K2w, the two in one
+  launch K3/K3w, the shared-H QP K4, the batched Cholesky K5a/b/c and its
+  slab-blocked form K6a/b) with their plain PyTorch versions, and the
+  per-problem IPM and the stage-wise Riccati solvers in plain torch;
+- ``runtime`` — the batched closed loop, the scenario and fleet builders,
+  ``checkpoint`` (npz snapshots in the reference's format, resume) and
+  ``profiling`` (stage timers, the solve-time protocol, torch.profiler
+  traces);
+- ``analysis`` — solve-time statistics, step-response metrics, comparison
+  tables and figures (matplotlib, imported only to draw), and the roofline
+  in H100 units;
+- ``interop`` — carrying the reference package's objects across.
 
 Entry points run on CUDA unless the caller passes a device (the tests pass
 ``device="cpu"``). Every float32 matrix product runs in full float32: the

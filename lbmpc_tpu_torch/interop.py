@@ -2,10 +2,11 @@
 
 `from_reference(obj)` takes an object of the JAX package — duck-typed by its
 attribute names, never imported — and returns the port's version: the host
-objects (OCPMatrices, ConstraintSet, CondensedQP, LBMPCWeights) as float64
-numpy, a DataWindow and the stage-form data (StageQP, StageGNQP) as tensors
-on the given device (N and kT stay ints). Tests use it to feed both packages
-the same matrices.
+objects (OCPMatrices, ConstraintSet, CondensedQP, LBMPCWeights, DLTIModel,
+Polytope, the tracking sandbox's TrackingSetup) as float64 numpy, a
+checkpoint's EpisodeState as numpy copies of its arrays, a DataWindow and
+the stage-form data (StageQP, StageGNQP) as tensors on the given device (N
+and kT stay ints). Tests use it to feed both packages the same matrices.
 """
 
 from __future__ import annotations
@@ -15,11 +16,14 @@ import torch
 
 from lbmpc_tpu_torch.controllers.condensed import CondensedQP
 from lbmpc_tpu_torch.controllers.lbmpc import LBMPCWeights
+from lbmpc_tpu_torch.controllers.tracking_sandbox import TrackingSetup
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.models.linear import DLTIModel
 from lbmpc_tpu_torch.ops.sparse_gn import StageGNQP
 from lbmpc_tpu_torch.ops.sparse_ipm import StageQP
 from lbmpc_tpu_torch.oracle import DataWindow
+from lbmpc_tpu_torch.runtime.checkpoint import EpisodeState
+from lbmpc_tpu_torch.sets.polytope import Polytope
 from lbmpc_tpu_torch.sets.terminal import ConstraintSet
 from lbmpc_tpu_torch.synthesis import OCPMatrices
 
@@ -64,6 +68,19 @@ def from_reference(obj, device=None, dtype=None):
         return LBMPCWeights(Lq=_np(obj.Lq), Lr=_np(obj.Lr), Lp=_np(obj.Lp),
                             sqrtT=float(obj.sqrtT), LAMBDA=_np(obj.LAMBDA),
                             PSI=_np(obj.PSI))
+    if _has(obj, "x_abs", "window_X", "z_warm"):
+        return EpisodeState(**{f: (int(obj.step) if f == "step"
+                                   else None if getattr(obj, f) is None
+                                   else np.array(getattr(obj, f)))
+                               for f in EpisodeState.__dataclass_fields__})
+    if _has(obj, "Gp", "Gr", "term", "mais"):
+        fields = TrackingSetup.__dataclass_fields__
+        return TrackingSetup(**{f: (int(obj.N) if f == "N"
+                                    else from_reference(getattr(obj, f))
+                                    if f in ("model", "Xc", "Uc", "term", "mais", "Xf")
+                                    else _np(getattr(obj, f))) for f in fields})
+    if _has(obj, "F", "h") and not _has(obj, "G"):
+        return Polytope(_np(obj.F), _np(obj.h))
     if _has(obj, "A", "B", "C", "D", "ts"):
         return DLTIModel(A=_np(obj.A), B=_np(obj.B), C=_np(obj.C), D=_np(obj.D),
                          ts=float(obj.ts))

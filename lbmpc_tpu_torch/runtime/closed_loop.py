@@ -51,6 +51,7 @@ def run_closed_loop_batched(
     qp_warm_solve: Callable | None = None,
     qp_init_state: Callable | None = None,
     lane_exact: bool = False,
+    x_init: torch.Tensor | None = None,
 ) -> ClosedLoopResult:
     """Advance the cohort `iterations` steps (ref: functions/ocpLBMPC.m:10-46).
 
@@ -60,13 +61,15 @@ def run_closed_loop_batched(
     qp_init_state(dx_init, z0) seeding step 0 cold-identically. lane_exact:
     the applied input in a form whose bits do not depend on B, for a solver
     whose lanes do not either (the NMPC's), so a lane of a batch equals its
-    single-lane run."""
+    single-lane run. x_init (B, n): the absolute plant state to start from
+    (a checkpoint's, runtime/checkpoint.resume), where x_wp + dx_init may
+    round away from it; dx_init is then x_init - x_wp."""
     m = u_wp.shape[-1] if u_wp.ndim else 1
     u_wp = torch.atleast_1d(u_wp)
     nth = Mtheta_x.shape[1]
     chain = qp_warm_solve is not None
 
-    x = x_wp[None, :] + dx_init
+    x = x_wp[None, :] + dx_init if x_init is None else x_init
     window, z_ws = window0, z0
     qps = qp_init_state(dx_init, z0) if chain else None
     sys_h, art_h, conv_h = [], [], []
@@ -119,6 +122,7 @@ def run_closed_loop(
     learn: bool = True,
     log_post_state: bool = True,
     lane_exact: bool = False,
+    x_init: torch.Tensor | None = None,   # (n,)
 ) -> ClosedLoopResult:
     """One scenario's episode (ref: run_closed_loop): the cohort of one lane
     through run_closed_loop_batched, with the lane axis taken off the
@@ -130,7 +134,8 @@ def run_closed_loop(
     res = run_closed_loop_batched(
         solve_fn, plant_step, warm_start_fn, Ks, A, B, Mtheta_x, x_wp, u_wp,
         dx_init[None], z0[None], DataWindow(*(a[None] for a in window0)),
-        iterations, learn=learn, log_post_state=log_post_state, lane_exact=lane_exact)
+        iterations, learn=learn, log_post_state=log_post_state, lane_exact=lane_exact,
+        x_init=None if x_init is None else x_init[None])
     return ClosedLoopResult(
         sys_history=res.sys_history[0], art_history=res.art_history[0],
         solver_converged=res.solver_converged[0],

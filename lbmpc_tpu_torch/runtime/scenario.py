@@ -55,6 +55,8 @@ class Scenario:
     - episode_from(dx_init (n,), window0, z0 (nz,), steps=cfg.iterations),
       episode_with_window(dx_init, window0) and episode(dx_init): one
       scenario's ClosedLoopResult (histories without a lane axis);
+    - episode_from_batch(dx (B, n), window (B, ...), z (B, nz), steps=...):
+      the batched counterpart of episode_from (histories batch-first);
     - run(dx_init=None) and run_batch(dx_inits (B, n)).
     The solver and episodes run in the preset's dtype (float32, or float64
     for "float64" and "mixed"); the NMPC's in float64, as the reference's."""
@@ -82,15 +84,18 @@ class Scenario:
         return self._episode_parts["solve"]
 
     def episode_from(self, dx_init, window0: DataWindow, z0,
-                     steps: int | None = None) -> ClosedLoopResult:
-        """Episode from an arbitrary carry (the resume path)."""
+                     steps: int | None = None, x_abs=None) -> ClosedLoopResult:
+        """Episode from an arbitrary carry (the resume path). x_abs: the
+        absolute plant state to start from exactly (a checkpoint's), in
+        place of x_wp + dx_init."""
         p = self._episode_parts
         c = lambda a: torch.as_tensor(a, dtype=p["dtype"], device=p["device"])
         return run_closed_loop(
             p["solve"], p["plant"], p["warm"], *p["consts"], c(dx_init), c(z0),
             window0.to(p["dtype"], p["device"]),
             self.cfg.iterations if steps is None else steps, learn=p["learn"],
-            log_post_state=self.cfg.controller != "lbmpc", lane_exact=p["lane_exact"])
+            log_post_state=self.cfg.controller != "lbmpc", lane_exact=p["lane_exact"],
+            x_init=None if x_abs is None else c(x_abs))
 
     def episode_with_window(self, dx_init, window0: DataWindow) -> ClosedLoopResult:
         return self.episode_from(dx_init, window0, torch.zeros(self.nz))
@@ -113,28 +118,39 @@ class Scenario:
 
     def run_batch(self, dx_inits) -> ClosedLoopResult:
         """Independent episodes from the rows of dx_inits (B, n), advanced
-        together (histories batch-first, as the reference's vmap).
-        sparse_parallel refuses a batch whose associative scan would not fit
+        together (histories batch-first, as the reference's vmap), from the
+        initial window and a zero warm start."""
+        p = self._episode_parts
+        Bsz = len(dx_inits)
+        win = init_window(self.cfg.oracle.q, d_out=self.cfg.oracle.d_out,
+                          dtype=p["dtype"], batch=(Bsz,), device=p["device"])
+        return self.episode_from_batch(dx_inits, win, torch.zeros(Bsz, self.nz))
+
+    def episode_from_batch(self, dx, window: DataWindow, z,
+                           steps: int | None = None, x_abs=None) -> ClosedLoopResult:
+        """Independent episodes from a batched carry (the batched resume
+        path): dx (B, n), a window with the lane axis B leading, z (B, nz),
+        and optionally x_abs (B, n) as in episode_from. sparse_parallel
+        refuses a batch whose associative scan would not fit
         the card (sparse_parallel_limit)."""
         p = self._episode_parts
-        dx = torch.as_tensor(dx_inits, dtype=p["dtype"], device=p["device"])
-        Bsz = dx.shape[0]
+        c = lambda a: torch.as_tensor(a, dtype=p["dtype"], device=p["device"])
+        dx = c(dx)
         if self.cfg.solver.qp_backend == "sparse_parallel":
             limit = sparse_parallel_limit(self, p["device"], p["dtype"])
-            lane_stages = Bsz * self.cfg.ocp.N
+            lane_stages = dx.shape[0] * self.cfg.ocp.N
             if limit is not None and lane_stages > limit:
                 raise ValueError(
                     f"sparse_parallel: batch x N = {lane_stages} lane-stages "
                     f"exceeds the {limit} this device's memory holds "
                     f"({SPARSE_PARALLEL_MARGIN:.0%} of it for the solve); use "
                     "qp_backend='sparse' for large batches")
-        win = init_window(self.cfg.oracle.q, d_out=self.cfg.oracle.d_out,
-                          dtype=p["dtype"], batch=(Bsz,), device=p["device"])
         return run_closed_loop_batched(
-            p["solve"], p["plant"], p["warm"], *p["consts"], dx,
-            torch.zeros(Bsz, self.nz, dtype=p["dtype"], device=p["device"]), win,
-            self.cfg.iterations, learn=p["learn"],
-            log_post_state=self.cfg.controller != "lbmpc", lane_exact=p["lane_exact"])
+            p["solve"], p["plant"], p["warm"], *p["consts"], dx, c(z),
+            window.to(p["dtype"], p["device"]),
+            self.cfg.iterations if steps is None else steps, learn=p["learn"],
+            log_post_state=self.cfg.controller != "lbmpc", lane_exact=p["lane_exact"],
+            x_init=None if x_abs is None else c(x_abs))
 
 
 # The share of the card's memory a sparse_parallel batch may fill with its
