@@ -54,7 +54,17 @@ counts set to 0 just before it and read just after:
   launch counters) and set against the H100 roofline; checkpoint and resume
   of LBMPC_N40 at full width (a batch of 256 and one lane, resumed equal
   to uninterrupted within 1e-12); the tracking sandbox's episodes on the
-  card against the CPU, and response_info on the card against the CPU.
+  card against the CPU, and response_info on the card against the CPU;
+- the multi-device layer (runtime/sharding, ops/riccati_sharded; no kernel
+  of its own): the bench fused solve split over two shards of the card
+  against the whole one (K1 and K2 a shard; bit for bit),
+  the hybrid with its flagged lanes in one shard, fleet_runner cohorts and
+  global_solve_stats; an NCCL group of world size 1 in this process and two
+  gloo processes sharing the card, each running global_solve_stats and
+  lqr_cross_sharded; the stage split at N=304, the DMS flagship's sparse GN
+  at N=300 over 8 stage shards, and phase 38's batch resumed over the mesh;
+  the port's entry and examples; and the fused solver's refine=True (one
+  more K5c an IPM iteration), LBMPC_CHOL=xla (no K5) and jac_mode="jacfwd".
 It times the kernels, their plain versions, the library yardsticks, the
 solves and the fleet steps with CUDA events (K2 and K3 at batch 2048, the
 cohort and the repair's K, with their registers, spills and lanes an SM;
@@ -108,7 +118,7 @@ SPARSE_LOOP_LANES, SPARSE_LOOP_STEPS = 64, 4
 CK_BATCH, CK_STEPS = 256, 20  # phase 38's checkpointed batch and steps
 PROTOCOL_RUNS, PROTOCOL_ITERS = 5, 20   # phase 37's solve_time_protocol
 KERNELS_PHASE = 33            # the kernels line, printed last
-LAST_PHASE = 39
+LAST_PHASE = 44
 
 
 def log(msg: str) -> None:
@@ -634,6 +644,9 @@ def run_phases(dev, card: str, kind: str, args) -> int:
         log(f"  wall time so far {time.time() - t_start:.1f} s")
         if args.stop_after >= 39:
             sandbox_phase(dev, tag, ck)
+            log(f"  wall time so far {time.time() - t_start:.1f} s")
+        if args.stop_after >= 40:
+            mesh_phases(dev, tag, args, cfg, sc, dx, win, ck)
             log(f"  wall time so far {time.time() - t_start:.1f} s")
     return finish(card, kind, kernels, args)
 
@@ -1599,13 +1612,26 @@ def wide_phases(dev, tag: str, args, kernels: dict, dx_init) -> None:
             "N40 fleet launches K1w and K2w only")
     for k in ("gn_wide", "mehrotra_h_wide"):
         kernels[k]["launches"] = per[k]
-    res_p = run_p(dx_init[:256])
-    d = (sysH[:256] - res_p.sys_history).abs()
+    # the plain route on the same cohort: its batched torch products round
+    # by B (cuBLAS picks their kernels by the batch), so its run of the
+    # first 256 lanes alone parts from its cohort run (logged below) and
+    # is not what the kernel route's cohort is held to
+    res_p = run_p(dx_init)
+    d = (sysH[:256] - res_p.sys_history[:256]).abs()
     log(f"  first 256 lanes vs plain route: |d sys_history| median={d.median().item():.3e} "
         f"max={d.max().item():.3e}; plain conv="
-        f"{res_p.solver_converged.float().mean().item():.6f}")
+        f"{res_p.solver_converged[:256].float().mean().item():.6f}")
     require(d.median().item() < 1e-6 and d.max().item() < 5e-2,
             "N40 fleet sys_history vs the plain route: median < 1e-6, max < 5e-2")
+    k256, p256 = run_k(dx_init[:256]), run_p(dx_init[:256])
+    log(f"  the first 256 lanes alone: kernel route bit for bit its cohort's "
+        f"{torch_equal(k256.sys_history, sysH[:256])}; plain route |d| max "
+        f"{(p256.sys_history - res_p.sys_history[:256]).abs().max().item():.3e} from its "
+        f"cohort's, {(p256.sys_history - sysH[:256]).abs().max().item():.3e} from the kernel "
+        f"route's")
+    require(torch_equal(k256.sys_history, sysH[:256])
+            and torch_equal(k256.solver_converged, res.solver_converged[:256]),
+            "N40 fleet: the kernel route's first 256 lanes alone equal its cohort's, bit for bit")
     if args.stop_after < 23:
         return
 
@@ -2969,8 +2995,8 @@ def checkpoint_phase(dev, tag: str):
     (N=40, q=100, float64, the preset's solver), CK_BATCH seeded states
     around dx_init: CK_STEPS steps uninterrupted against half of them, a
     save / load through a file, and resume for the rest; then one lane
-    through the single-lane path. Returns the uninterrupted batch's
-    result."""
+    through the single-lane path. Returns the batch's (cfg, uninterrupted
+    result, checkpointed state, initial states)."""
     import torch
 
     import lbmpc_tpu_torch as lt
@@ -3024,7 +3050,7 @@ def checkpoint_phase(dev, tag: str):
         require(torch.equal(part2.final_window.count, full.final_window.count)
                 and torch.equal(part2.final_window.valid, full.final_window.valid),
                 f"checkpoint {name}: the window's count and valid carry across")
-        out[name] = (cfg, full)
+        out[name] = (cfg, full, state, lanes)
     log(f"  phase 38 took {time.time() - t_phase:.1f} s")
     return out["batch"]
 
@@ -3081,7 +3107,7 @@ def sandbox_phase(dev, tag: str, ck) -> None:
             ok = conv.double().mean() > 0.9 and np.abs(sysH[:, :2]).max() <= 5.0 + 0.15
         require(bool(ok), f"tracking sandbox {name}: the reference test's claims hold on the card "
                 "(tests/test_tracking_sandbox.py)")
-    cfg, full = ck
+    cfg, full = ck[:2]
     h = full.sys_history
     for ch in (0, 1):
         x, u = h[..., ch], h[..., -1]
@@ -3096,6 +3122,492 @@ def sandbox_phase(dev, tag: str, ck) -> None:
         require(all(a.device == x.device and a.dtype == x.dtype for a in got) and d <= 1e-12,
                 f"response_info x{ch + 1} on the card within 1e-12 of the CPU")
     log(f"  phase 39 took {time.time() - t_phase:.1f} s")
+
+
+MESH_FLEET_CHUNK, MESH_FLEET_COHORTS, MESH_FLEET_STEPS = 2048, 4, 3   # phase 40's fleet
+SPLIT_N, SPLIT_NW, SPLIT_K, SPLIT_SHARDS = 304, 8, 3, 4    # phase 42's stage split
+GN_MESH_N, GN_MESH_SHARDS = 300, 8                          # phase 42's sparse GN gate
+
+MESH_WORKER = r'''
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[4])
+import torch.distributed as dist
+from lbmpc_tpu_torch.ops.riccati_sharded import lqr_cross_sharded, stage_mesh
+from lbmpc_tpu_torch.runtime.sharding import (global_solve_stats, initialize_multihost,
+                                              scenario_mesh)
+pid, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+initialize_multihost(f"localhost:{port}", num_processes=2, process_id=pid, backend="gloo")
+mesh = scenario_mesh(devices=[dev])
+conv = torch.tensor([True, False, True, pid == 0], device=dev)
+stats = global_solve_stats(mesh, conv)
+args = [torch.as_tensor(a, device=dev) for a in np.load(out + ".in.npz").values()]
+W, C = lqr_cross_sharded(stage_mesh(devices=[dev]), *args)
+np.savez(out + f".{pid}.npz", W=W.cpu().numpy(), C=C.cpu().numpy(), stats=np.array(stats),
+         world=dist.get_world_size())
+dist.destroy_process_group()
+'''
+
+
+def riccati_problem(N_: int, nw: int, m: int, K: int, seed: int):
+    """tests/test_riccati_sharded.py's stage problem, float64 numpy."""
+    rng = np.random.default_rng(seed)
+    As = 0.95 * rng.standard_normal((N_, nw, nw)) / np.sqrt(nw)
+    Bs = rng.standard_normal((N_, nw, m))
+    Mq = rng.standard_normal((N_, nw, nw)) / np.sqrt(nw)
+    Qs = Mq @ Mq.transpose(0, 2, 1) + 0.1 * np.eye(nw)
+    Rs = (np.broadcast_to(np.eye(m), (N_, m, m)).copy()
+          + 0.1 * np.abs(rng.standard_normal((N_, 1, 1))) * np.eye(m))
+    Ss = 0.05 * rng.standard_normal((N_, nw, m))
+    Mp = rng.standard_normal((nw, nw)) / np.sqrt(nw)
+    return (As, Bs, Qs, Ss, Rs, rng.standard_normal((N_, nw, K)),
+            rng.standard_normal((N_, m, K)), Mp @ Mp.T + 0.1 * np.eye(nw),
+            rng.standard_normal((nw, K)))
+
+
+def cross_reference(args):
+    """_riccati_cross column by column: (W (N+1, nw, K), C (N, m, K))."""
+    import torch
+
+    from lbmpc_tpu_torch.ops.sparse_gn import _riccati_cross
+
+    As, Bs, Qs, Ss, Rs, qs, rs, PN, pN = args
+    cols = [_riccati_cross(*(a[None] for a in (As, Bs, Qs, Ss, Rs)), qs[None, ..., k],
+                           rs[None, ..., k], PN[None], pN[None, ..., k])
+            for k in range(qs.shape[-1])]
+    return (torch.stack([c[0][0] for c in cols], -1), torch.stack([c[1][0] for c in cols], -1))
+
+
+def run_example(main_fn, argv: list) -> dict:
+    """An example's main(argv) in this process: its output logged, its last
+    line's JSON returned."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main_fn(argv)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"    {line}")
+    return json.loads(lines[-1])
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phases(dev, tag: str, args, cfg, sc, dx, win, ck) -> None:
+    """Phases 40-44: the multi-device layer (runtime/sharding,
+    ops/riccati_sharded, resume over a mesh) on the card, the port's entry
+    and examples, and the fused solver's three options (refine=True,
+    LBMPC_CHOL=xla, jac_mode="jacfwd")."""
+    import os
+
+    import torch
+
+    import lbmpc_tpu_torch as lt
+    from lbmpc_tpu_torch import entry as t_entry
+    from lbmpc_tpu_torch.controllers.lbmpc import make_lbmpc_solver_sparse
+    from lbmpc_tpu_torch.controllers.sqp_fused import (make_lbmpc_solver_fused,
+                                                       make_lbmpc_solver_hybrid)
+    from lbmpc_tpu_torch.examples import fleet_100k, scenario_sweep
+    from lbmpc_tpu_torch.ops.ipm_fused import build_fused_qp_solver
+    from lbmpc_tpu_torch.ops.lanes import exact_rows
+    from lbmpc_tpu_torch.ops.qp_kernel import mehrotra_h_plain
+    from lbmpc_tpu_torch.ops.riccati_sharded import lqr_cross_sharded, stage_mesh
+    from lbmpc_tpu_torch.ops.sparse_gn import solve_sparse_gn
+    from lbmpc_tpu_torch.oracle import DataWindow
+    from lbmpc_tpu_torch.runtime.checkpoint import capture, load, resume, save
+    from lbmpc_tpu_torch.runtime.scenario import build_fleet_episode, build_scenario
+    from lbmpc_tpu_torch.runtime.sharding import (fleet_runner, global_solve_stats,
+                                                  initialize_multihost, scenario_mesh,
+                                                  sharded_episode_runner, split_solver)
+    import torch.distributed as dist
+
+    f32 = torch.float32
+    nz = sc.nz
+    cards = torch.cuda.device_count()
+    mesh = scenario_mesh(2) if cards == 1 else scenario_mesh()
+    times = {}
+
+    # ---- phase 40: the scenario mesh on the card -------------------------------
+    t_phase = time.time()
+    log(f"phase 40: the scenario mesh on the card: {mesh.size} shards "
+        f"({', '.join(str(d) for d in mesh.devices)}); the bench fused solve (pallas_full) at "
+        f"batch {BATCH}, the hybrid with the fused repair, fleet_runner cohorts, "
+        "global_solve_stats; split against unsplit")
+    kw = dict(family="fmincon", delta=cfg.plant.ts, bandwidth=cfg.oracle.bandwidth,
+              ridge=cfg.oracle.ridge, dx_ref=np.asarray(cfg.dx_ref), sqp_iters=2,
+              ipm_iters=IPM_SCHED, alphas=LADDER, qp_warm=True, qp_kernel="pallas_full",
+              device=dev)
+    z0 = torch.zeros(BATCH, nz, dtype=f32, device=dev)
+    # K1 and K2 give a lane the same bits at any B, and the solver's row
+    # products take B-independent forms (ops/lanes.exact_rows)
+    fused = make_lbmpc_solver_fused(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, **kw)
+    zero_counts()
+    z_un, c_un = fused(dx, win, z0)
+    sync(dev)
+    per = {k: route_counts()[k] for k in ("gn_phase", "mehrotra_h")}
+    zero_counts()
+    z_sh, c_sh = split_solver(mesh, fused)(dx, win, z0)
+    sync(dev)
+    split = {k: route_counts()[k] for k in ("gn_phase", "mehrotra_h")}
+    log(f"  fused: unsplit launches {per}, split {split}; |dz| max "
+        f"{(z_sh - z_un).abs().max().item():.3e}, bit for bit {torch_equal(z_sh, z_un)}, "
+        f"conv {c_sh.float().mean().item():.6f} {tag}")
+    require(all(split[k] == per[k] * mesh.size and per[k] > 0 for k in per),
+            "split fused solve: K1 and K2 launches = the per-shard count x the shards")
+    require(torch_equal(z_sh, z_un) and torch_equal(c_sh, c_un),
+            "split fused solve equals the unsplit one bit for bit")
+    hyb = make_lbmpc_solver_hybrid(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w, **kw,
+                                   repair_frac=REPAIR_K / BATCH, repair_sqp_iters=1,
+                                   repair_ipm_iters=8, repair_warm="fused",
+                                   repair_backend="fused")
+    # a batch whose flagged lanes all sit in shard 0: lanes the fused solve
+    # converges, tiled, then more lanes than the repair takes moved far from
+    # the operating point at the head of the batch
+    ok = hyb.fused(dx, win, z0)[1].nonzero().flatten()
+    idx = ok[torch.arange(BATCH, device=dev) % ok.numel()]
+    hard, hard_win = dx[idx].clone(), win.index(idx)
+    hard[:REPAIR_K + 8] += torch.tensor([0.0, 0.0, 1.0, 10.0], device=dev)
+    for name, dx_h, win_h in (("natural", dx, win), ("flagged lanes in shard 0", hard, hard_win)):
+        flags = ~hyb.fused(dx_h, win_h, z0)[1]
+        where = flags.nonzero().flatten()
+        zu, cu = hyb(dx_h, win_h, z0)
+        zero_counts()
+        zs, cs = split_solver(mesh, hyb)(dx_h, win_h, z0)
+        sync(dev)
+        d = (zs - zu).abs().max().item()
+        b = BATCH // mesh.size
+        log(f"  hybrid, {name}: {int(flags.sum())} lanes flagged by the fused solve (shards "
+            f"{sorted(set((where // b).tolist()))}); split vs unsplit |dz| max {d:.3e}, bit for "
+            f"bit {torch_equal(zs, zu)}, flags equal {torch_equal(cs, cu)}, conv "
+            f"{cs.float().mean().item():.6f}; launches {route_counts()} {tag}")
+        require(bool(torch.isfinite(zs).all()) and d < 5e-3 and torch_equal(cs, cu),
+                f"split hybrid ({name}) within 5e-3 of the unsplit one, the same flags")
+        if name != "natural":
+            require(int(flags[:b].sum()) > REPAIR_K and int(flags[b:].sum()) == 0,
+                    "the hard lanes are flagged, all in shard 0, more than the repair's K")
+    fcfg = dataclasses.replace(cfg, iterations=MESH_FLEET_STEPS)
+    _, run = build_fleet_episode(fcfg, backend="fused", ipm_iters=IPM_SCHED, sqp_iters=2,
+                                 qp_warm=True, warm_chain=True, qp_kernel="pallas_full",
+                                 device=dev)
+    F = MESH_FLEET_COHORTS * MESH_FLEET_CHUNK
+    dx_all = torch.as_tensor(np.array([-0.35, -0.4, 0.0, 0.0])
+                             + np.random.default_rng(40).uniform(-0.02, 0.02, (F, 4)),
+                             dtype=f32, device=dev)
+    zero_counts()
+    t0 = time.time()
+    res = fleet_runner(run, mesh, MESH_FLEET_CHUNK)(dx_all)
+    sync(dev)
+    t_split = time.time() - t0
+    counts = route_counts()
+    t0 = time.time()
+    direct = [run(dx_all[i:i + MESH_FLEET_CHUNK]) for i in range(0, F, MESH_FLEET_CHUNK)]
+    sync(dev)
+    t_direct = time.time() - t0
+    same = all(torch_equal(res.sys_history[i * MESH_FLEET_CHUNK:(i + 1) * MESH_FLEET_CHUNK],
+                           r.sys_history) for i, r in enumerate(direct))
+    conv = res.solver_converged.all(dim=-1)
+    stats = global_solve_stats(mesh, conv)
+    log(f"  fleet_runner: F={F}, chunk {MESH_FLEET_CHUNK}, {MESH_FLEET_STEPS} steps, "
+        f"pallas_full warm chain: {t_split:.2f} s split, {t_direct:.2f} s cohort by cohort; "
+        f"bit for bit {same}; launches {counts}; global_solve_stats {stats} {tag}")
+    require(same, "fleet_runner equals the cohort-by-cohort run bit for bit")
+    require(counts["gn_phase"] > 0 and counts["mehrotra_h"] > 0,
+            "fleet_runner launched K1 and K2")
+    require(stats == (int(conv.sum()), F), "global_solve_stats sums every shard")
+    times[40] = time.time() - t_phase
+    log(f"  phase 40 took {times[40]:.1f} s")
+
+    # ---- phase 41: collectives on the card --------------------------------------
+    t_phase = time.time()
+    log("phase 41: collectives on the card: an NCCL group of world size 1 in this process "
+        "(a localhost TCP store), then two processes sharing the card on gloo")
+    args_np = riccati_problem(64, SPLIT_NW, 1, SPLIT_K, seed=41)
+    t64 = [torch.as_tensor(a, device=dev) for a in args_np]
+    W1, C1 = lqr_cross_sharded(stage_mesh(devices=[dev]), *t64)
+    W2, C2 = lqr_cross_sharded(stage_mesh(devices=[dev] * 2), *t64)
+    Wr, _ = cross_reference(t64)
+    initialize_multihost(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        gm = scenario_mesh()
+        conv = torch.tensor([True, False, True, True], device=dev)
+        st = global_solve_stats(gm, conv)
+        Wn, Cn = lqr_cross_sharded(stage_mesh(), *t64)
+        sync(dev)
+        log(f"  NCCL: backend {dist.get_backend()}, world {dist.get_world_size()}, mesh "
+            f"{gm.devices} distributed={gm.distributed}; global_solve_stats {st}; "
+            f"lqr_cross_sharded equal to one in-process shard {torch_equal(Wn, W1)}, "
+            f"{(Wn - Wr).abs().max().item():.3e} from _riccati_cross {tag}")
+        require(gm.distributed and st == (3, 4), "NCCL: global_solve_stats through the group")
+        require(torch_equal(Wn, W1) and torch_equal(Cn, C1),
+                "NCCL: lqr_cross_sharded through the group equals the in-process sweep")
+    finally:
+        dist.destroy_process_group()
+    out = ROOT / "build" / "mesh_worker" / "sweep"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(str(out) + ".in.npz", *args_np)
+    worker = out.parent / "worker.py"
+    worker.write_text(MESH_WORKER)
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, str(worker), str(i), str(port), str(out),
+                               str(ROOT)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for i in range(2)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            log(text[-3000:])
+        require(p.returncode == 0, f"gloo rank {i} exited 0")
+        got = np.load(str(out) + f".{i}.npz")
+        same = (np.array_equal(got["W"], W2.cpu().numpy())
+                and np.array_equal(got["C"], C2.cpu().numpy()))
+        log(f"  gloo rank {i}: world {int(got['world'])}, global_solve_stats "
+            f"{tuple(got['stats'])}, lqr_cross_sharded equal to the in-process 2-shard sweep "
+            f"{same} {tag}")
+        require(tuple(got["stats"]) == (5, 8), f"gloo rank {i}: global_solve_stats (5, 8)")
+        require(same, f"gloo rank {i}: its sweep equals the in-process one bit for bit")
+    times[41] = time.time() - t_phase
+    log(f"  phase 41 took {times[41]:.1f} s")
+
+    # ---- phase 42: the stage split and resume over a mesh ----------------------
+    t_phase = time.time()
+    log(f"phase 42: lqr_cross_sharded at N={SPLIT_N}, nw={SPLIT_NW}, m=1, K={SPLIT_K} over "
+        f"{SPLIT_SHARDS} stage shards; solve_sparse_gn on DMS_LBMPC_q100 at N={GN_MESH_N} over "
+        f"{GN_MESH_SHARDS} shards; resume over the scenario mesh (phase 38's batch)")
+    args_np = riccati_problem(SPLIT_N, SPLIT_NW, 1, SPLIT_K, seed=42)
+    t64 = [torch.as_tensor(a, device=dev) for a in args_np]
+    smesh = stage_mesh(SPLIT_SHARDS)
+    W, C = lqr_cross_sharded(smesh, *t64)
+    Wr, Cr = cross_reference(t64)
+    dW = (W - Wr).abs().max().item() / (Wr.abs().max().item() + 1.0)
+    dC = (C - Cr).abs().max().item() / (Cr.abs().max().item() + 1.0)
+    W32, _ = lqr_cross_sharded(smesh, *(a.float() for a in t64))
+    d32 = (W32.double() - W).abs().max().item() / (W.abs().max().item() + 1.0)
+    log(f"  float64: W {dW:.3e}, C {dC:.3e} (relative) from _riccati_cross; float32 "
+        f"{d32:.3e} from float64 {tag}")
+    require(dW < 1e-8 and dC < 1e-8, "stage split within 1e-8 (scaled) of _riccati_cross")
+    require(d32 < 1e-3, "stage split in float32 within 1e-3 (scaled) of float64")
+    gcfg = lt.make_preset("DMS_LBMPC_q100")
+    gcfg = dataclasses.replace(gcfg, ocp=dataclasses.replace(gcfg.ocp, N=GN_MESH_N))
+    gsc = build_scenario(gcfg)
+    solve = make_lbmpc_solver_sparse(
+        gsc.qp, gsc.A, gsc.B, gsc.ocp.Ks, gsc.w, gsc.cs, family="casadi",
+        delta=gcfg.plant.ts, bandwidth=gcfg.oracle.bandwidth, ridge=gcfg.oracle.ridge,
+        dx_ref=np.asarray(gcfg.dx_ref), terminal_at=gcfg.ocp.terminal_at,
+        tighten_first_step=gcfg.ocp.tighten_first_step, dtype=torch.float64, device=dev)
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    gwin = DataWindow(t(0.1 * rng.standard_normal((1, 32, 3))),
+                      t(0.001 * rng.standard_normal((1, 32, 4))),
+                      t(np.ones((1, 32))), torch.full((1,), 32, dtype=torch.int32, device=dev))
+    gdx = t((np.asarray(gcfg.x_init_abs) - np.asarray(gcfg.plant.x_wp))[None])
+    gz = t(np.concatenate([0.005 * rng.standard_normal(GN_MESH_N),
+                           0.01 * rng.standard_normal(1)])[None])
+    lin = solve.linearize(gz, gdx, gwin)
+    t0 = time.time()
+    un = solve_sparse_gn(solve.stage_qp, *lin, iters=25)
+    sync(dev)
+    t_un = time.time() - t0
+    t0 = time.time()
+    shd = solve_sparse_gn(solve.stage_qp, *lin, iters=25, mesh=stage_mesh(GN_MESH_SHARDS))
+    sync(dev)
+    t_sh = time.time() - t0
+    scale = un.dC.abs().max().item() + 1.0
+    dd = (shd.dC - un.dC).abs().max().item()
+    dth = (shd.dth - un.dth).abs().max().item()
+    log(f"  sparse GN N={GN_MESH_N}: |d dC| {dd:.3e}, |d dtheta| {dth:.3e} (scale {scale:.4g}); "
+        f"converged {bool(un.converged[0])} / {bool(shd.converged[0])}; {t_un:.2f} s unsplit, "
+        f"{t_sh:.2f} s over {GN_MESH_SHARDS} shards (eager) {tag}")
+    require(bool(un.converged.all() and shd.converged.all()) and dd < 1e-7 * scale
+            and dth < 1e-7 * scale, "stage-sharded GN within 1e-7 * scale of mesh=None")
+    # the reference's test_sharded_fleet_checkpoint_resume: interrupted over
+    # the mesh, resumed over it, against the uninterrupted run over it; and
+    # beside phase 38's unsplit run (a shard's 128 lanes round apart from
+    # 256: the float64 per-problem stack's products are cuBLAS's, which
+    # picks its kernels by the batch's size)
+    ck_cfg, full, _, dx_ck = ck
+    half = CK_STEPS // 2
+    ck_sc = build_scenario(ck_cfg, device=dev)
+    sc_half = build_scenario(dataclasses.replace(ck_cfg, iterations=half), device=dev)
+    zero_counts()
+    t0 = time.time()
+    full_s = sharded_episode_runner(ck_sc.run_batch, mesh)(dx_ck)
+    part1 = sharded_episode_runner(sc_half.run_batch, mesh)(dx_ck)
+    path = ROOT / "build" / "checkpoints" / "phase42.npz"
+    save(path, capture(part1, step=half), meta={"preset": ck_cfg.name, "shards": mesh.size})
+    state, _ = load(path)
+    part2 = resume(ck_sc, state, steps=CK_STEPS - half, mesh=mesh)
+    sync(dev)
+    t_res = time.time() - t0
+    no_kernel_launched("resume over a mesh", "the float64 per-problem SQP has none")
+
+    def dist(a, b):
+        pairs = {"sys_history": (a[0], b.sys_history[:, half + 1:]),
+                 "final_x": (a[1], b.final_x), "final_window.Y": (a[2], b.final_window.Y)}
+        return ({k: (x - y).abs().max().item() for k, (x, y) in pairs.items()},
+                all(torch_equal(x, y) for x, y in pairs.values()))
+
+    got = (part2.sys_history[:, 1:], part2.final_x, part2.final_window.Y)
+    d_s, bits_s = dist(got, full_s)
+    d_u, bits_u = dist(got, full)
+    log(f"  resume over {mesh.size} shards, {tuple(state.x_abs.shape)} lanes, {half} + "
+        f"{CK_STEPS - half} steps (uninterrupted, interrupted and resumed, over the mesh): "
+        f"{t_res:.2f} s; against the uninterrupted run over the mesh max |d| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in d_s.items()) + f", bit for bit {bits_s}; "
+        "against phase 38's unsplit run " + ", ".join(f"{k} {v:.3e}" for k, v in d_u.items())
+        + f", bit for bit {bits_u} {tag}")
+    require(max(d_s.values()) <= 1e-12,
+            "resume over a mesh equals the uninterrupted run over it within 1e-12")
+    times[42] = time.time() - t_phase
+    log(f"  phase 42 took {times[42]:.1f} s")
+
+    # ---- phase 43: the entry and the examples ----------------------------------
+    t_phase = time.time()
+    log("phase 43: the port's entry (entry(), dryrun_multichip(2)) and the examples")
+    fn, (dx8,) = t_entry.entry()
+    ze, ce = fn(dx8)
+    sync(dev)
+    log(f"  entry: z {tuple(ze.shape)} on {ze.device}, conv {ce.float().mean().item():.3f}")
+    require(ze.device.type == "cuda" and bool(torch.isfinite(ze).all()) and bool(ce.all()),
+            "entry(): the flagship batch solved on the card, finite, converged")
+    zero_counts()
+    dr = t_entry.dryrun_multichip(2)
+    log(f"  dryrun_multichip(2): {json.dumps(dr)}; launches {route_counts()} {tag}")
+    require(dr["stage2"]["max_diff"] < 5e-3 and dr["stage4"]["rel_diff"] < 1e-9,
+            "dryrun_multichip(2): every stage's gate")
+    for argv in (["--instances", "16384", "--chunk", "8192", "--steps", "3", "--fused",
+                  "--qp-kernel", "pallas_full", "--warm-chain"],
+                 ["--instances", "4096", "--chunk", "2048", "--steps", "2"]):
+        zero_counts()
+        line = run_example(fleet_100k.main, argv)
+        log(f"  fleet_100k {' '.join(argv)}: {line['value']} solves/s, converged "
+            f"{line['converged_frac']}; launches {route_counts()} {tag}")
+        require(line["metric"] == "fleet_closed_loop_solves_per_s" and line["value"] > 0
+                and line["device"] == torch.cuda.get_device_name(0),
+                "fleet_100k prints its JSON line with the card's name")
+        if "--fused" in argv:
+            require(route_counts()["gn_phase"] > 0 and route_counts()["mehrotra_h"] > 0,
+                    "fleet_100k --fused --qp-kernel pallas_full launched K1 and K2")
+    line = run_example(scenario_sweep.main, ["--scenarios", "1024", "--steps", "5"])
+    require(line["total"] == 1024 and line["value"] > 0, "scenario_sweep ran 1024 scenarios")
+    times[43] = time.time() - t_phase
+    log(f"  phase 43 took {times[43]:.1f} s")
+
+    # ---- phase 44: the fused solver's three options ----------------------------
+    t_phase = time.time()
+    log(f"phase 44: refine=True on the DMS QP (nz=101, batch {DMS_BATCH}); LBMPC_CHOL=xla "
+        f"and jac_mode='jacfwd' on the bench xla solve (batch {BATCH})")
+    dcfg = lt.make_preset("DMS_LBMPC_q100")
+    dcfg = dataclasses.replace(dcfg, solver=dataclasses.replace(dcfg.solver, dtype="float32"))
+    ds = build_scenario(dcfg)
+    dkw = dict(family="casadi", delta=dcfg.plant.ts, bandwidth=dcfg.oracle.bandwidth,
+               ridge=dcfg.oracle.ridge, dx_ref=np.asarray(dcfg.dx_ref), device=dev)
+    dsolver = make_lbmpc_solver_fused(ds.qp, ds.A, ds.B, ds.ocp.Ks, ds.w, **dkw)
+    rng = np.random.default_rng(44)
+    _, dwin, _ = bench_inputs(rng, DMS_BATCH, ds.nz, dev)
+    x0 = np.asarray(dcfg.x_init_abs) - np.asarray(dcfg.plant.x_wp)
+    ddx = torch.as_tensor(x0 + 0.01 * rng.standard_normal((DMS_BATCH, 4)), dtype=f32,
+                          device=dev)
+    dz0 = torch.zeros(DMS_BATCH, ds.nz, dtype=f32, device=dev)
+    _, H, g = dsolver.gn.plain(dz0, ddx, dwin)
+    h = dsolver.h0[None] + ddx @ dsolver.Hp.T - dz0 @ dsolver.G.T
+    it = XLA_SCHED[0]
+    sols, k5c = {}, {}
+    for refine in (False, True):
+        qps = build_fused_qp_solver(None, ds.qp.G, iters=it, refine=refine, device=dev)
+        zero_counts()
+        sols[refine] = qps.raw_with_H(H, g, h)
+        sync(dev)
+        k5c[refine] = chol_counts()["chol_resolve"]
+    d64 = mehrotra_h_plain(dsolver.G.double(), H.double(), g.double(), h.double(), 60)[0]
+    on, off = sols[True], sols[False]
+    log(f"  refine: K5c launches {k5c[False]} -> {k5c[True]} ({it} IPM iterations); conv "
+        f"{off.converged.float().mean().item():.4f} -> {on.converged.float().mean().item():.4f}"
+        f"; |x_refine - x| max {(on.x - off.x).abs().max().item():.3e} {tag}")
+    require(k5c[True] - k5c[False] == it, "refine=True: one more K5c launch an IPM iteration")
+    require(bool(torch.isfinite(on.x).all()), "refine=True: finite")
+    f64_gates("refine=True vs refine=False (DMS QP, float64 solve at 60 iterations)", on.x,
+              on.mu, off.x, off.mu, d64)
+    require(on.converged.float().mean().item() >= off.converged.float().mean().item() - 0.005,
+            "refine=True: conv within 0.5 pp of refine=False or above")
+    bkw = dict(family="fmincon", delta=cfg.plant.ts, bandwidth=cfg.oracle.bandwidth,
+               ridge=cfg.oracle.ridge, dx_ref=np.asarray(cfg.dx_ref), sqp_iters=2,
+               ipm_iters=XLA_SCHED, alphas=LADDER, device=dev)
+    bench = lambda **extra: make_lbmpc_solver_fused(sc.qp, sc.A, sc.B, sc.ocp.Ks, sc.w,
+                                                    **bkw, **extra)
+    k5 = bench()
+    zero_counts()
+    zk, ckv = k5(dx, win, z0)
+    sync(dev)
+    require(chol_counts()["chol_factor_solve"] > 0, "the K5 route launched K5a")
+    os.environ["LBMPC_CHOL"] = "xla"
+    try:
+        lib = bench()
+    finally:
+        del os.environ["LBMPC_CHOL"]
+    zero_counts()
+    zl, cl = lib(dx, win, z0)
+    sync(dev)
+    log(f"  LBMPC_CHOL=xla: launches {chol_counts()} {tag}")
+    require(chol_counts() == chol_none(), "LBMPC_CHOL=xla launches no K5 or K6")
+    route_gates("LBMPC_CHOL=xla vs the K5 route (bench xla solve)", zl, cl, zk, ckv)
+    fwd = bench(jac_mode="jacfwd")
+    z1 = 0.01 * torch.randn(BATCH, nz, generator=torch.Generator().manual_seed(44)).to(dev)
+    J_fwd = fwd.gn.jacfwd(z1, dx, win)
+    J_man = fwd.gn.res_jac(z1, dx, win)[1]
+    dJ = (J_fwd - J_man).abs().max().item() / J_man.abs().max().item()
+    t0 = time.time()
+    zf, cf = fwd(dx, win, z0)
+    sync(dev)
+    t_fwd = time.time() - t0
+    log(f"  jac_mode='jacfwd': J {tuple(J_fwd.shape)} {dJ:.3e} (relative) from the "
+        f"hand-derived J; {t_fwd * 1e3:.1f} ms a solve (host clock, first call) {tag}")
+    require(dJ < 1e-5, "jacfwd's J within float32 roundoff (1e-5 of max|J|) of the manual J")
+    # two float32 computations of J that agree to roundoff may part where
+    # the first QP (16 IPM iterations) stalls on either side: there a
+    # roundoff-level change moves the stalled iterate far, as
+    # qp_step_gates allows for a QP step. jacfwd is held to the manual J's
+    # solve by solve_gates on every lane where neither first QP stalled;
+    # every lane beyond 5e-2 must have stalled on a side, the stalled shares
+    # within 2 pp. The library Cholesky's lanes are logged beside.
+    qp1 = build_fused_qp_solver(None, sc.qp.G, iters=XLA_SCHED[0], device=dev)
+    hb = k5.h0[None] + exact_rows(dx, k5.Hp)
+    first_mu = lambda s, mode: qp1.raw_with_H(*s.gn.plain(z0, dx, win, mode)[1:], hb).mu
+    mu_man, mu_fwd = first_mu(k5, "manual"), first_mu(fwd, "jacfwd")
+    stalled = ~((mu_man < 1e-6) & (mu_fwd < 1e-6))
+    far = lambda z_: ~((z_ - zk).abs().amax(dim=1) <= 5e-2)
+    lanes = lambda m: m.nonzero().flatten().tolist()
+    share = lambda m: (~(m < 1e-6)).float().mean().item()
+    log(f"  lanes beyond 5e-2 of the K5 route: LBMPC_CHOL=xla {lanes(far(zl))}, jacfwd "
+        f"{lanes(far(zf))}; first QP stalled (mu >= 1e-6) on a side of jacfwd's "
+        f"{lanes(far(zf) & stalled)}; stalled shares manual {share(mu_man):.4f}, jacfwd "
+        f"{share(mu_fwd):.4f} {tag}")
+    require(not bool((far(zf) & ~stalled).any()) and abs(share(mu_man) - share(mu_fwd)) <= 0.02,
+            "jacfwd parts beyond 5e-2 from the manual J's solve only on lanes whose first QP "
+            "stalled on a side, stalled shares within 2 pp")
+    solve_gates("jac_mode='jacfwd' vs 'manual' (bench xla solve, the lanes whose first QP "
+                "stalled on neither side)", zf[~stalled], cf[~stalled], zk[~stalled],
+                ckv[~stalled])
+    route_gates("jac_mode='jacfwd' vs 'manual' (bench xla solve)", zf, cf, zk, ckv)
+    times[44] = time.time() - t_phase
+    log(f"  phase 44 took {times[44]:.1f} s; phases 40-44 {sum(times.values()):.1f} s")
 
 
 def first_beyond(d, tol: float):

@@ -382,6 +382,7 @@ def make_lbmpc_solver_sparse(
         return z, conv
 
     solve.linearize = linearize
+    solve.stage_qp = sg
     return solve
 
 

@@ -32,7 +32,11 @@ HybridSolver repairs the flagged lanes with the fused solver at the
 compacted size (repair_backend="fused") or with the per-problem SQP of
 controllers/lbmpc.make_lbmpc_solver on ops/ipm ("vmapped", the reference's
 default); FleetSolver (make_lbmpc_solver_fleet) defers one vmapped repair
-over R fused batches. jac_mode="jacfwd" is not ported yet and raises.
+over R fused batches. jac_mode="jacfwd" takes the GN Jacobian of the
+routes with the plain GN phase ("xla", "pallas") from torch.func.jacfwd of
+one lane's residual, vmapped over the lanes (the reference's autodiff path,
+lbmpc_tpu/controllers/sqp_fused.py:198-203); the kernel routes ignore it,
+as the reference's do.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.oracle import DataWindow
 from lbmpc_tpu_torch.ops.gn_kernel import GNPhase
 from lbmpc_tpu_torch.ops.ipm_fused import build_fused_qp_solver
-from lbmpc_tpu_torch.ops.lanes import lane_sum
+from lbmpc_tpu_torch.ops.lanes import exact_rows, lane_sum
 from lbmpc_tpu_torch.ops.mono_kernel import MonoPhase
 from lbmpc_tpu_torch.ops.qp_kernel import (MI_MAX, NZ_MAX_WIDE, QPSolverH,
                                            step_rhs)
@@ -57,9 +61,8 @@ _F32 = torch.float32
 
 def _check_route(qp_kernel: str, family: str, qp: CondensedQP,
                  jac_mode: str) -> None:
-    if jac_mode != "manual":
-        raise ValueError(f"jac_mode={jac_mode!r} is not ported yet; the port "
-                         "has the hand-derived Jacobian (jac_mode='manual')")
+    if jac_mode not in ("manual", "jacfwd"):
+        raise ValueError(f"jac_mode={jac_mode!r}: 'manual' or 'jacfwd'")
     if family not in ("fmincon", "casadi"):
         raise ValueError(f"family={family!r}: the fused SQP covers the "
                          "fmincon and casadi families")
@@ -128,7 +131,12 @@ class FusedSolver:
     "pallas_full") with qp_warm, `raw_qpwarm` (dx0, windows, z_ws,
     qp_state) -> (z, conv, qp_state) threads the QP kernel's interior (s, z)
     across solves, seeded by `init_qp_state`; the xla and pallas_mono routes
-    ignore qp_warm, as the reference does."""
+    ignore qp_warm, as the reference does. The merit's and the flag's
+    products with G and Hp take ops/lanes.exact_rows, whose rows do not
+    depend on B (cuBLAS picks a matrix product's kernel by B): on
+    pallas_full, where K1 and K2 give a lane the same bits at any B, a
+    lane's bits then do not depend on the batch's size, and a split solve
+    (runtime/sharding.split_solver) equals the whole one bit for bit."""
 
     def __init__(self, qp: CondensedQP, A, B, Ks, w: LBMPCWeights,
                  family: str = "fmincon", delta: float = 0.01,
@@ -151,6 +159,7 @@ class FusedSolver:
         self.alphas = alphas
         self.qp_warm = qp_warm
         self.plain = plain
+        self.jac_mode = jac_mode
         t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
         self.G, self.h0, self.Hp = t(qp.G), t(qp.h0), t(qp.Hp)
         self.nz = qp.nz
@@ -190,8 +199,9 @@ class FusedSolver:
         return (self.qp_warm and i > 0, self.qp_warm and i < self.sqp_iters - 1)
 
     def _gn(self, z, dx0, windows):
-        kernel = self.qp_kernel == "pallas_full" and not self.plain
-        return (self.gn if kernel else self.gn.plain)(z, dx0, windows)
+        if self.qp_kernel == "pallas_full":
+            return (self.gn.plain if self.plain else self.gn)(z, dx0, windows)
+        return self.gn.plain(z, dx0, windows, self.jac_mode)
 
     def cost(self, z, dx0, windows):
         e = self.gn.residual(z, dx0, windows)
@@ -222,7 +232,7 @@ class FusedSolver:
             self._vmem_ok.add(q)
         loop = qp_state is not None
         G = self.G
-        h = self.h0[None, :] + dx0 @ self.Hp.T
+        h = self.h0[None, :] + exact_rows(dx0, self.Hp)
         per_gn = isinstance(self.alphas[0], (tuple, list))
         mu_last = torch.zeros(dx0.shape[0], dtype=_F32, device=dx0.device)
         warm_state = qp_state
@@ -230,7 +240,7 @@ class FusedSolver:
             sched = (tuple(self.alphas[min(it, len(self.alphas) - 1)])
                      if per_gn else tuple(self.alphas))
             if self.qp_kernel == "xla":
-                e, H, gb = self.gn.plain(z, dx0, windows)
+                e, H, gb = self.gn.plain(z, dx0, windows, self.jac_mode)
                 sub = self._fused[self.ipm_sched[it]].raw_with_H(
                     H, gb, h - z @ G.T)
                 del H
@@ -247,7 +257,7 @@ class FusedSolver:
                 d, mu_last = out[0], out[1]
                 warm_state = out[2] if wout else None
             # merit at the current iterate reuses the GN phase's residual
-            v0 = lane_sum(torch.clamp(z @ G.T - h, min=0.0))
+            v0 = lane_sum(torch.clamp(exact_rows(z, G) - h, min=0.0))
             m0 = lane_sum(e * e) + self.rho * v0
             dirderiv = (gb * d).sum(dim=1) - self.rho * v0
             # fixed Armijo ladder; if every alpha is rejected (e.g. a NaN
@@ -257,7 +267,7 @@ class FusedSolver:
             for a in sched:
                 za = z + a * d
                 m_a = (self.cost(za, dx0, windows)
-                       + self.rho * lane_sum(torch.clamp(za @ G.T - h, min=0.0)))
+                       + self.rho * lane_sum(torch.clamp(exact_rows(za, G) - h, min=0.0)))
                 ok = ~accepted & (m_a <= m0 + 1e-4 * a * dirderiv)
                 alpha_sel = torch.where(ok, a, alpha_sel)
                 accepted = accepted | ok
@@ -265,7 +275,7 @@ class FusedSolver:
             z = z + alpha_sel[:, None] * d
         # controller-level convergence: feasible, finite, sane last QP
         h_scale = 1.0 + h.abs().amax(dim=1)
-        viol = (z @ G.T - h).amax(dim=1)
+        viol = (exact_rows(z, G) - h).amax(dim=1)
         conv = ((viol <= 2e-3 * h_scale) & torch.isfinite(z).all(dim=1)
                 & (mu_last < 1e-2))
         return z, conv, warm_state
@@ -347,16 +357,27 @@ class HybridSolver:
         return z, conv, qp_state
 
 
+def repair_pick(conv, K: int):
+    """The K lanes a repair takes: those flagged first (~conv), by a stable
+    descending sort of the flags (lax.top_k's order), then unflagged ones
+    where fewer than K are flagged."""
+    return torch.argsort((~conv).to(_F32), descending=True, stable=True)[:K]
+
+
 def repair_lanes(repair, K: int, seed_fused: bool, z, conv, dx0,
                  windows: DataWindow, z_ws):
-    """Re-solve the K lanes flagged first (a stable descending sort of the
-    flags: lax.top_k's order) with `repair` (dx0, windows, z_seed) -> (z,
-    conv), seeded at z where finite (seed_fused) or at z_ws; scatter the
-    results back where a lane was flagged, a non-finite repaired z as 0.
-    Lanes past the K flagged first keep their result and their flag."""
-    flagged = ~conv
-    idx = torch.argsort(flagged.to(_F32), descending=True, stable=True)[:K]
-    take = flagged[idx]
+    """Re-solve the K lanes flagged first (repair_pick) with `repair` (dx0,
+    windows, z_seed) -> (z, conv); see repair_at. Lanes past the K flagged
+    first keep their result and their flag."""
+    return repair_at(repair, repair_pick(conv, K), seed_fused, z, conv, dx0, windows,
+                     z_ws)
+
+
+def repair_at(repair, idx, seed_fused: bool, z, conv, dx0, windows: DataWindow, z_ws):
+    """Re-solve the lanes `idx` with `repair`, seeded at z where finite
+    (seed_fused) or at z_ws; scatter the results back where a lane was
+    flagged, a non-finite repaired z as 0."""
+    take = (~conv)[idx]
     z_seed = (torch.where(torch.isfinite(z[idx]), z[idx], z_ws[idx]) if seed_fused
               else z_ws[idx])
     z_r, conv_r = repair(dx0[idx], windows.index(idx), z_seed)

@@ -164,13 +164,28 @@ class GNPhase:
         c[_C_HCONST:] = Hc.ravel()
         return torch.as_tensor(c, dtype=torch.float32, device=self.device)
 
-    def plain(self, z, dx0, window: DataWindow):
-        """The plain PyTorch version: same function, any device."""
-        e, J = self.res_jac(z, dx0, window)
+    def plain(self, z, dx0, window: DataWindow, jac_mode: str = "manual"):
+        """The plain PyTorch version: same function, any device.
+        jac_mode="jacfwd" takes J from torch.func.jacfwd of one lane's
+        residual, vmapped over the lanes, in place of the hand-derived
+        sensitivities."""
+        if jac_mode == "jacfwd":
+            e, J = self.residual(z, dx0, window), self.jacfwd(z, dx0, window)
+        else:
+            e, J = self.res_jac(z, dx0, window)
         Jt = J.transpose(1, 2)
         H = 2.0 * (Jt @ J) + self._eye
         g = 2.0 * (Jt @ e[..., None])[..., 0]
         return e, H, g
+
+    def jacfwd(self, z, dx0, window: DataWindow):
+        """J (B, ne, nz) of the residual by forward-mode autodiff of one
+        lane, vmapped over the lanes."""
+        def one(z1, dx1, *win):
+            return self.residual(z1[None], dx1[None],
+                                 DataWindow(*(a[None] for a in win)))[0]
+
+        return torch.func.vmap(torch.func.jacfwd(one))(z, dx0, *window)
 
     def __call__(self, z, dx0, window: DataWindow):
         if z.device.type == "cpu":

@@ -12,13 +12,22 @@ reference (read when the solver is built); they equal K5a / K5b bit for
 bit, and K5c still re-solves. The rest is batched torch. float32, with full
 float32 matrix products (TF32 is off in the package).
 
-Differences from the reference:
-- no batch padding: the reference pads B to its TPU lane tile because a
-  Pallas grid of B // tile programs would skip a ragged tail; here every
-  kernel runs one block per lane, so any B is solved as it is;
-- refine=True (f64 iterative refinement; off by default in the reference
-  and measured net-neutral there) and LBMPC_CHOL=xla (the XLA Cholesky)
-  are not ported and raise ValueError.
+Two options, off by default as in the reference:
+- refine=True: the safeguarded float64 refinement of the corrector solve
+  (lbmpc_tpu/ops/ipm_fused.py:338-353): the residual M dx - r in float64,
+  one K5c re-solve of it with the stored L, and the correction kept only on
+  the lanes where it shrinks the residual. It runs where the reference runs
+  it, with L stored (on the K5 or K6 route; the reference's x64 condition
+  always holds in torch): one more K5c launch an IPM iteration;
+- LBMPC_CHOL=xla (read when the solver is built): the reference's library
+  route, jnp.linalg's Cholesky (ops/ipm_fused.py:176, :330-331), here
+  torch.linalg.cholesky_ex and cholesky_solve; a lane the library cannot
+  factor gets a NaN factor, as jnp.linalg.cholesky gives. It launches no
+  K5.
+
+No batch padding: the reference pads B to its TPU lane tile because a
+Pallas grid of B // tile programs would skip a ragged tail; here every
+kernel runs one block per lane, so any B is solved as it is.
 """
 
 from __future__ import annotations
@@ -135,18 +144,14 @@ class FusedQPSolver:
                  plain: bool = False):
         G = np.asarray(G)
         mI, nz = G.shape
-        if refine:
-            raise ValueError("refine=True (f64 iterative refinement) is not "
-                             "ported yet")
-        if os.environ.get("LBMPC_CHOL") == "xla":
-            raise ValueError("LBMPC_CHOL=xla (the XLA Cholesky) is not ported "
-                             "yet; the port solves the KKT systems on K5")
+        self.chol_xla = os.environ.get("LBMPC_CHOL", "pallas") == "xla"
         self.device = dev = resolve_device(device)
         self.iters, self.scale, self.d_cap = int(iters), bool(scale), float(d_cap)
         self.plain = plain
         self.nz, self.mI = nz, mI
         self.store_L = factor_store_feasible()
         self.blocked = blocked_switch(nz)
+        self.refine = bool(refine) and self.store_L and not self.chol_xla
         t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
         self.H = t(H).reshape(1, nz, nz) if H is not None else None
         self.G = t(G)
@@ -238,7 +243,10 @@ class FusedQPSolver:
             # wrap them)
             factor = chol_factor_solve_blocked if self.blocked else chol_factor_solve
             refactor = chol_solve_blocked if self.blocked else chol_solve
-            if self.store_L:
+            if self.chol_xla:
+                L = _library_factor(Mk)
+                u_a = torch.cholesky_solve((rhs_of(rc_aff) * sc)[..., None], L)[..., 0]
+            elif self.store_L:
                 L, u_a = factor(Mk, rhs_of(rc_aff) * sc, plain)
             else:
                 u_a = refactor(Mk, rhs_of(rc_aff) * sc, plain)
@@ -249,11 +257,16 @@ class FusedQPSolver:
             sr = mu_aff / torch.clamp(mu, min=1e-25)
             sigma = sr * sr * sr
             rc = s * z + ds_a * dz_a - (sigma * mu)[:, None]
-            rhs_c = rhs_of(rc) * sc
-            if self.store_L:
+            rhs_u = rhs_of(rc)
+            rhs_c = rhs_u * sc
+            if self.chol_xla:
+                dx = torch.cholesky_solve(rhs_c[..., None], L)[..., 0] * sc
+            elif self.store_L:
                 dx = chol_resolve(L, rhs_c, plain) * sc
             else:
                 dx = refactor(Mk, rhs_c, plain) * sc
+            if self.refine:
+                dx = _refine(M, L, dx, rhs_u, sc, plain)
             ds, dz = expand(dx, rc)
             ap = steplen(s, ds, 0.995)
             ad = steplen(z, dz, 0.995)
@@ -272,6 +285,26 @@ class FusedQPSolver:
                                   farkas_gap=farkas_gap)
 
 
+def _library_factor(Mk):
+    """torch.linalg's Cholesky of every lane, NaN where it fails (as
+    jnp.linalg.cholesky); no host check."""
+    L, info = torch.linalg.cholesky_ex(Mk, check_errors=False)
+    return torch.where((info != 0)[:, None, None], torch.nan, L)
+
+
+def _refine(M, L, dx, rhs, sc, plain: bool):
+    """One safeguarded refinement of the corrector's dx (M dx = rhs, with
+    the equilibrated factor L of sc M sc): the residual in float64, one K5c
+    re-solve of it, the correction kept on the lanes where the float64
+    residual shrinks (lbmpc_tpu/ops/ipm_fused.py:338-353)."""
+    M64 = M.double()
+    resid = (M64 @ dx.double()[..., None])[..., 0] - rhs.double()
+    e = chol_resolve(L, resid.float() * sc, plain) * sc
+    resid2 = resid - (M64 @ e.double()[..., None])[..., 0]
+    better = (resid2 * resid2).sum(dim=1) < (resid * resid).sum(dim=1)
+    return dx - torch.where(better[:, None], e, 0.0)
+
+
 def build_fused_qp_solver(H, G, iters: int = 20, refine: bool = False,
                           scale: bool = True, d_cap: float = 1e6, device=None,
                           plain: bool = False) -> FusedQPSolver:
@@ -279,6 +312,8 @@ def build_fused_qp_solver(H, G, iters: int = 20, refine: bool = False,
     only solve_with_H / raw_with_H are used). `scale` is the symmetric
     Jacobi equilibration of every KKT matrix before the factorization;
     `d_cap` caps the constraint weights d = z/s (the reference's on-chip
-    sweep chose 1e6). `device` and `plain` are the port's."""
+    sweep chose 1e6). `refine` is the safeguarded float64 refinement of the
+    corrector solve (with L stored; module docstring). `device` and `plain`
+    are the port's."""
     return FusedQPSolver(H, G, iters=iters, refine=refine, scale=scale,
                          d_cap=d_cap, device=device, plain=plain)

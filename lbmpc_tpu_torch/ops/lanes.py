@@ -16,7 +16,9 @@ threads when there are few rows, and cuBLAS picks its batched
 matrix-vector product's kernel by the batch count, while sums of rows of
 at most 128 entries and its two-column product keep one order. exact_sum
 and exact_mv take those forms; the NMPC's solves use them, on at least two
-lanes, which keeps cuSOLVER on its batched paths.
+lanes, which keeps cuSOLVER on its batched paths. exact_rows gives a
+matrix product's rows the same bits at any B; the fused SQP's merit and
+flag use it.
 """
 
 from __future__ import annotations
@@ -53,6 +55,23 @@ def exact_sum(v: torch.Tensor) -> torch.Tensor:
     if n <= EXACT_CHUNK:
         return F_.pad(v, (0, -n % ALIGN)).sum(dim=-1)
     return F_.pad(v, (0, -n % EXACT_CHUNK)).unflatten(-1, (-1, EXACT_CHUNK)).sum(-1).sum(-1)
+
+
+ROWS_CHUNK = 2048
+
+
+def exact_rows(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """v @ M.T, v (B, c), M (r, c), in zero-padded chunks of ROWS_CHUNK rows:
+    every product is the same (ROWS_CHUNK, c) x (c, r) matrix product, on
+    operands that start on the same alignment, so its kernel, and a row's
+    bits, do not depend on B. A plain (B, 21) x (21, 214) product's do:
+    cuBLAS picks its kernel by B (tools/lane_exact_forms.py)."""
+    B = v.shape[0]
+    vp = F_.pad(v, (0, 0, 0, -B % ROWS_CHUNK))
+    out = vp.new_empty(vp.shape[0], M.shape[0])
+    for i in range(0, vp.shape[0], ROWS_CHUNK):
+        torch.mm(vp[i:i + ROWS_CHUNK], M.T, out=out[i:i + ROWS_CHUNK])
+    return out[:B]
 
 
 def exact_mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -202,6 +202,23 @@ def _riccati_solve(factor, As, Bs, qs, rs, pN):
     return W, Kg @ W[:, :N] + kfs
 
 
+def _riccati_cross(As, Bs, Qs, Ss, Rs, qs, rs, PN, pN):
+    """LQ with stage-varying dynamics, x-u cross terms and w_0 = 0, one
+    right-hand side, by the single-device sweeps:
+
+      min sum_k 1/2 w_k'Q_k w_k + w_k'S_k c_k + 1/2 c_k'R_k c_k
+              + q_k'w_k + r_k'c_k  +  1/2 w_N'PN w_N + pN'w_N
+      s.t. w_{k+1} = A_k w_k + B_k c_k,  w_0 = 0.
+
+    Lanes lead: stage arrays (B, N, ., .), qs (B, N, nw), rs (B, N, m), PN
+    (B, nw, nw), pN (B, nw). Returns (W (B, N+1, nw), C (B, N, m)): the
+    factor/solve split in one call, the sweep ops/riccati_sharded's split
+    one is held to (the reference's lbmpc_tpu/ops/sparse_gn.py:199)."""
+    factor = _riccati_factor(As, Bs, Qs, Ss, Rs, PN)
+    W, C = _riccati_solve(factor, As, Bs, qs[..., None], rs[..., None], pN[..., None])
+    return W[..., 0], C[..., 0]
+
+
 class SparseGNSolution(NamedTuple):
     dC: torch.Tensor             # (B, N, m) control step
     dth: torch.Tensor            # (B, nth) theta step
@@ -225,14 +242,16 @@ def solve_sparse_gn(qp: StageGNQP, Als, Bls, q_xl, r_c, g_th,
       hx_t (B, N, mx), hu_t (B, N, mu), hd_t (B, md), hw_t (B, mw): per-group
         rhs h - F(rollout at z_bar), the slack the current iterate leaves.
 
-    mesh: the reference's stage-sharded sweeps over a device mesh are not
-    ported (ROADMAP §1 item 4); a mesh raises. Float32 matrix products run in
-    full precision (TF32 is off in the package), as the reference runs at
+    mesh: a 'stage' mesh (ops/riccati_sharded.stage_mesh): the Riccati
+    sweeps then run stage-sharded over its shards (lqr_cross_sharded), the
+    theta columns and the predictor in one multi-RHS sweep, the corrector in
+    a second, as the reference's (lbmpc_tpu/ops/sparse_gn.py:355-372); each
+    sweep redoes the quadratic part. Float32 matrix products run in full
+    precision (TF32 is off in the package), as the reference runs at
     HIGHEST."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_sparse_gn(mesh=...): the stage-sharded Riccati sweeps "
-            "(ops/riccati_sharded) are not ported (ROADMAP §1 item 4)")
+    if mesh is not None and getattr(mesh, "axis", None) != "stage":
+        raise ValueError("solve_sparse_gn(mesh=...) takes a 'stage' mesh "
+                         "(ops/riccati_sharded.stage_mesh)")
     N, kT = qp.N, qp.kT
     dtype, dev = qp.A.dtype, qp.A.device
     cast = lambda a: a.to(dtype=dtype, device=dev)
@@ -345,8 +364,17 @@ def solve_sparse_gn(qp: StageGNQP, Als, Bls, q_xl, r_c, g_th,
         CwT_eff = qp.Fw_x.mT @ (Dw[..., None] * qp.Fw_th)         # (B, n, nth) on dx_kT
 
         # ONE quadratic backward sweep an iteration; the nth + 2 right-hand
-        # sides (theta columns, predictor, corrector) reuse its factor
-        factor = _riccati_factor(As, Bs, Qs, Ss, Rs, PN)
+        # sides (theta columns, predictor, corrector) reuse its factor. On a
+        # mesh the sweeps run stage-sharded instead (ops/riccati_sharded)
+        if mesh is None:
+            factor = _riccati_factor(As, Bs, Qs, Ss, Rs, PN)
+
+        def rsolve(qs, rs, pNs):
+            if mesh is None:
+                return _riccati_solve(factor, As, Bs, qs, rs, pNs)
+            from lbmpc_tpu_torch.ops.riccati_sharded import lqr_cross_sharded
+
+            return lqr_cross_sharded(mesh, As, Bs, Qs, Ss, Rs, qs, rs, PN, pNs)
 
         def coupling_step(Ws, Cs):
             """The theta row of the augmented system (cost + barrier
@@ -429,8 +457,8 @@ def solve_sparse_gn(qp: StageGNQP, Als, Bls, q_xl, r_c, g_th,
 
         # predictor, swept with the theta columns
         (qw, rc, pN_r), awth = newton_rhs(sx * zx, su * zu, sd * zd, sw * zw)
-        Wk, Ck = _riccati_solve(
-            factor, As, Bs, torch.cat([qw_th, qw[..., None]], -1),
+        Wk, Ck = rsolve(
+            torch.cat([qw_th, qw[..., None]], -1),
             torch.cat([rc_cols.expand(Bsz, N, m, nth), rc[..., None]], -1),
             torch.cat([pN_th, pN_r[..., None]], -1))
         Wk, Ck = Wk.movedim(-1, 1), Ck.movedim(-1, 1)       # (B, nth+1, N+1, nw), ...
@@ -453,8 +481,7 @@ def solve_sparse_gn(qp: StageGNQP, Als, Bls, q_xl, r_c, g_th,
         rcs = (sx * zx + dsxa * dzxa - smu3, su * zu + dsua * dzua - smu3,
                sd * zd + dsda * dzda - smu2, sw * zw + dswa * dzwa - smu2)
         (qw, rc, pN_r), awth = newton_rhs(*rcs)
-        W0, C0 = _riccati_solve(factor, As, Bs, qw[..., None], rc[..., None],
-                                pN_r[..., None])
+        W0, C0 = rsolve(qw[..., None], rc[..., None], pN_r[..., None])
         corr = newton_finish(W0[..., 0], C0[..., 0], awth, cols, *rcs)
         dW, dC, dth = corr[0], corr[1], corr[2]
         dsx, dsu, dsd, dsw = corr[3:7]

@@ -5,9 +5,8 @@ the workspace .mat snapshots, examples/DSS_NMPC.m:1-5, and the cached
 terminal set, functions/getCONS.m:56-58): versioned npz snapshots of the
 closed loop's carry — plant states, oracle windows, warm starts, step index
 — in the reference's format (FORMAT_VERSION 1, the same keys, `meta` as
-JSON), so a checkpoint written by either package loads in the other.
-Resuming a mesh-sharded fleet belongs to the multi-device slice
-(ROADMAP.md §1 item 4).
+JSON), so a checkpoint written by either package loads in the other. A batched
+checkpoint resumes re-sharded over a scenario mesh (runtime/sharding).
 """
 
 from __future__ import annotations
@@ -107,15 +106,27 @@ def resume(scenario, state: EpisodeState, steps: int, mesh=None):
     and part the episodes where a solve is sensitive): interrupted-then-
     resumed repeats the uninterrupted episode's computation
     (tests/test_torch_checkpoint.py).
-    `mesh` (a sharded fleet's re-shard) raises: the multi-device slice
-    (ROADMAP.md §1 item 4) has not been ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "resume(mesh=...) re-shards over a scenario mesh, which belongs to "
-            "the multi-device slice (runtime/sharding), not yet ported")
+    `mesh`: a scenario mesh (runtime/sharding.scenario_mesh) over which a
+    batched checkpoint is re-sharded, each shard resumed through
+    episode_from_batch on its device, the result in scenario order (this
+    rank's lanes with a process group up); an unbatched checkpoint
+    raises ValueError, as the reference's does."""
+    x_abs = np.asarray(state.x_abs)
+    if mesh is not None and x_abs.ndim < 2:
+        raise ValueError("mesh resume requires a batched checkpoint")
     window = DataWindow(*(torch.as_tensor(np.asarray(a)) for a in (
         state.window_X, state.window_Y, state.window_valid, state.window_count)))
-    x_abs = np.asarray(state.x_abs)
     dx = x_abs - np.asarray(scenario.cfg.plant.x_wp)
+    if mesh is not None:
+        from lbmpc_tpu_torch.runtime.sharding import sharded_episode_runner
+
+        def episode(carry):
+            dx_s, window_s, z_s, x_s = carry
+            return scenario.episode_from_batch(dx_s, window_s, z_s, steps=steps,
+                                               x_abs=x_s)
+
+        carry = (torch.as_tensor(dx), window, torch.as_tensor(np.asarray(state.z_warm)),
+                 torch.as_tensor(x_abs))
+        return sharded_episode_runner(episode, mesh)(carry)
     episode = scenario.episode_from_batch if dx.ndim > 1 else scenario.episode_from
     return episode(dx, window, state.z_warm, steps=steps, x_abs=x_abs)

@@ -60,8 +60,8 @@ def run_closed_loop_batched(
     qp_warm_solve(dx, window, z_ws, qp_state) -> (z, conv, qp_state') with
     qp_init_state(dx_init, z0) seeding step 0 cold-identically. lane_exact:
     the applied input in a form whose bits do not depend on B, for a solver
-    whose lanes do not either (the NMPC's), so a lane of a batch equals its
-    single-lane run. x_init (B, n): the absolute plant state to start from
+    whose lanes do not either (the NMPC's; the fused fleet's on
+    pallas_full), so a lane of a batch equals its run alone. x_init (B, n): the absolute plant state to start from
     (a checkpoint's, runtime/checkpoint.resume), where x_wp + dx_init may
     round away from it; dx_init is then x_init - x_wp."""
     m = u_wp.shape[-1] if u_wp.ndim else 1

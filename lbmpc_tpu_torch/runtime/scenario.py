@@ -381,7 +381,8 @@ def build_fleet_episode(name_or_cfg, ipm_iters=None,
                         qp_warm: bool = False,
                         warm_chain: bool = False,
                         device=None,
-                        plain: bool = False):
+                        plain: bool = False,
+                        mesh=None):
     """Batch-level fmincon-family LBMPC episode (float32).
 
     Returns (scenario, run) with run(dx_init (B, n)) -> ClosedLoopResult,
@@ -397,7 +398,13 @@ def build_fleet_episode(name_or_cfg, ipm_iters=None,
     threads K2's interior state across steps (needs qp_warm on "pallas" or
     "pallas_full"). plain=True runs
     the kernels' plain versions on the same device — the reference route for
-    comparisons on the card.
+    comparisons on the card. mesh: a scenario mesh (runtime/sharding) whose
+    shards split every solve (sharding.split_solver: the fused solve per
+    shard, the hybrid's repair over the whole batch); the episode carries
+    it as `run.mesh`, so the mesh runners hand it their lanes whole. The
+    solver's (FusedSolver) and the closed loop's products take forms whose
+    lanes do not depend on the batch's size, so that on pallas_full a split
+    fleet equals the whole one bit for bit.
     """
     from lbmpc_tpu_torch.controllers.sqp_fused import (make_lbmpc_solver_fused,
                                                        make_lbmpc_solver_hybrid)
@@ -434,6 +441,10 @@ def build_fleet_episode(name_or_cfg, ipm_iters=None,
         sqp_iters=sqp_iters or cfg.solver.sqp_iters,
         ipm_iters=ipm_iters or cfg.solver.ipm_iters,
         device=dev, plain=plain, **extra)
+    if mesh is not None:
+        from lbmpc_tpu_torch.runtime.sharding import split_solver
+
+        solver = split_solver(mesh, solver)
     f32 = torch.float32
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     Ks, A, B = t(np.atleast_2d(sc.ocp.Ks)), t(sc.A), t(sc.B)
@@ -455,7 +466,8 @@ def build_fleet_episode(name_or_cfg, ipm_iters=None,
             solver.raw, plant, lambda z, dxu, dxn, w_: z, Ks, A, B, LAM,
             x_wp, u_wp, dx_init, torch.zeros(B0, sc.nz, dtype=f32, device=dev),
             windows0, cfg.iterations, learn=cfg.learn_online,
-            log_post_state=False, **chain_kw)
+            log_post_state=False, lane_exact=True, **chain_kw)
 
     run.solver = solver
+    run.mesh = mesh
     return sc, run

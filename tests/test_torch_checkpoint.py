@@ -148,9 +148,15 @@ def test_resume_from_a_jax_checkpoint_matches_the_reference(tmp_path):
 
 
 def test_resume_on_a_mesh_belongs_to_the_multi_device_slice():
-    st = t_ck.EpisodeState(**_state(np.random.default_rng(2)))
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        t_ck.resume(None, st, steps=1, mesh=object())
+    """resume(mesh=) re-shards a batched checkpoint over a scenario mesh
+    (runtime/sharding; tests/test_torch_sharding.py); an unbatched one
+    raises, with the reference's message."""
+    from lbmpc_tpu_torch.runtime.sharding import scenario_mesh
+
+    st = t_ck.EpisodeState(**{k: v[0] if isinstance(v, np.ndarray) else v
+                              for k, v in _state(np.random.default_rng(2)).items()})
+    with pytest.raises(ValueError, match="mesh resume requires a batched checkpoint"):
+        t_ck.resume(None, st, steps=1, mesh=scenario_mesh(devices=["cpu"] * 2))
 
 
 def test_batched_resume_keeps_the_sparse_parallel_guard(monkeypatch):

@@ -17,8 +17,8 @@ from test_torch_qp import _problems
 
 
 def _port(*args, **kw):
-    """The port's solver, built before LBMPC_CHOL=xla is read (the port
-    raises on it)."""
+    """The port's solver (built before a test sets LBMPC_CHOL=xla for the
+    reference, the port's own K5 route)."""
     return t_fused.build_fused_qp_solver(*args, device="cpu", **kw)
 
 
@@ -204,17 +204,105 @@ def test_store_switch_routes_through_the_refactor_kernel(monkeypatch):
 
 @pytest.mark.parametrize("what", ["refine", "LBMPC_CHOL", "LBMPC_CHOL_BLOCKED"])
 def test_unported_options_raise(what, monkeypatch):
-    """refine=True and LBMPC_CHOL=xla are not ported and raise;
-    LBMPC_CHOL_BLOCKED=1 is ported (K6) and builds a solver on the blocked
-    kernels at nz=40 (n_p >= 32), which the switch once refused."""
+    """The fused solver's options, each off by default as in the reference,
+    build now: refine=True (with L stored), LBMPC_CHOL=xla (the library
+    Cholesky) and LBMPC_CHOL_BLOCKED=1 (K6, at nz=40: n_p >= 32, which the
+    switch once refused)."""
     G = _structured_G(nz=40)
     kw = {}
     if what == "refine":
         kw["refine"] = True
     else:
         monkeypatch.setenv(what, "xla" if what == "LBMPC_CHOL" else "1")
-    if what == "LBMPC_CHOL_BLOCKED":
-        assert _port(None, G).blocked
-        return
-    with pytest.raises(ValueError, match="not ported"):
-        _port(None, G, **kw)
+    s = _port(None, G, **kw)
+    assert {"refine": s.refine, "LBMPC_CHOL": s.chol_xla,
+            "LBMPC_CHOL_BLOCKED": s.blocked}[what]
+    assert (s.refine, s.chol_xla, s.blocked).count(True) == 1
+
+
+def _ill_posed(seed=3, B=6, n=12):
+    """SPD systems from the condition ~1e2 to ~1.5e9 (d = z/s spread, as late
+    IPM iterations make them), their right-hand sides, and the equilibrated
+    float32 factor of each (the last lane's does not exist: NaN)."""
+    rng = np.random.default_rng(seed)
+    Q = np.linalg.qr(rng.standard_normal((B, n, n)))[0]
+    ev = np.stack([np.logspace(0, k, n) for k in np.linspace(2, 9, B)])
+    M = ((Q * ev[:, None, :]) @ Q.transpose(0, 2, 1)).astype(np.float32)
+    M = 0.5 * (M + M.transpose(0, 2, 1))
+    rhs = rng.standard_normal((B, n)).astype(np.float32)
+    Mt, r = torch.tensor(M), torch.tensor(rhs)
+    sc = torch.rsqrt(torch.diagonal(Mt, dim1=1, dim2=2))
+    L, u = chol_kernel.chol_factor_solve(Mt * (sc[:, :, None] * sc[:, None, :]), r * sc, True)
+    return Mt, r, sc, L, u * sc
+
+
+def test_refine_step_matches_a_float64_computation():
+    """_refine (the corrector's safeguarded refinement) against numpy in
+    float64 on the same M, dx and L: the float64 residual, the correction
+    from L (solved here in float64 on L's float32 entries), and the lanes
+    where it shrinks the residual: the same lanes, dx within float32
+    roundoff of the correction. The lane float32 cannot factor gets a NaN
+    correction, which the safeguard does not apply."""
+    M, r, sc, L, dx = _ill_posed()
+    got = t_fused._refine(M, L, dx, r, sc, True)
+    M64, dx64, r64 = (a.numpy().astype(np.float64) for a in (M, dx, r))
+    sc64, L64 = sc.numpy().astype(np.float64), L.numpy().astype(np.float64)
+    resid = np.einsum("bij,bj->bi", M64, dx64) - r64
+    rhs = (resid.astype(np.float32).astype(np.float64) * sc64)[..., None]
+    with np.errstate(invalid="ignore"):
+        e = np.linalg.solve(L64 @ L64.transpose(0, 2, 1), rhs)[..., 0] * sc64
+    resid2 = resid - np.einsum("bij,bj->bi", M64, e)
+    better = (resid2 ** 2).sum(1) < (resid ** 2).sum(1)
+    want = dx64 - np.where(better[:, None], e, 0.0)
+    moved = (got != dx).any(dim=1).numpy()
+    np.testing.assert_array_equal(moved, better)
+    assert better[:-1].all() and not better[-1] and torch.equal(got[-1], dx[-1])
+    scale = np.abs(dx64).max(axis=1, keepdims=True)
+    assert (np.abs(got.numpy() - want) / scale)[:-1].max() < 1e-5
+
+
+def test_refine_adds_one_resolve_an_iteration(monkeypatch):
+    """refine=True: one more K5c re-solve an IPM iteration (the residual's),
+    the solution within the float32 class of refine=False, and beside the
+    JAX package's refine=True (interpret-mode Cholesky at nz=12, 4 lanes)."""
+    G, Hb, g, h = _problems(seed=4, B=4, nz=12, mI=40)
+    args = (torch.tensor(Hb), torch.tensor(g), torch.tensor(h))
+    calls = []
+    monkeypatch.setattr(t_fused, "chol_resolve",
+                        lambda *a: calls.append(1) or chol_kernel.chol_resolve(*a))
+    base = _port(None, G, iters=6).raw_with_H(*args)
+    n_base = len(calls)
+    ref_on = _port(None, G, iters=6, refine=True).raw_with_H(*args)
+    assert n_base == 6 and len(calls) - n_base == 12
+    assert bool(torch.isfinite(ref_on.x).all())
+    _close(ref_on.x.numpy(), base.x.numpy())
+    from lbmpc_tpu.ops.ipm_fused import build_fused_qp_solver
+
+    ref = build_fused_qp_solver(None, G, iters=6, refine=True, tile=4, interpret=True)
+    with jax.default_matmul_precision("highest"):
+        rs = ref.raw_with_H(jnp.asarray(Hb), jnp.asarray(g), jnp.asarray(h))
+    _close(ref_on.x.numpy(), rs.x)
+
+
+def test_library_cholesky_route_matches_reference(monkeypatch):
+    """LBMPC_CHOL=xla on both sides: the port's torch.linalg route against
+    the reference's jnp.linalg route, and not one K5 launch."""
+    G, Hb, g, h = _problems(seed=5)
+    monkeypatch.setenv("LBMPC_CHOL", "xla")
+    for name in ("chol_factor_solve", "chol_solve", "chol_resolve",
+                 "chol_factor_solve_blocked", "chol_solve_blocked"):
+        monkeypatch.setattr(t_fused, name, lambda *a, n=name: pytest.fail(f"{n} called"))
+    port = _port(None, G, iters=8)
+    assert port.chol_xla
+    sol = port.raw_with_H(torch.tensor(Hb), torch.tensor(g), torch.tensor(h))
+    from lbmpc_tpu.ops.ipm_fused import build_fused_qp_solver
+
+    ref = build_fused_qp_solver(None, G, iters=8, tile=Hb.shape[0])
+    with jax.default_matmul_precision("highest"):
+        rs = ref.raw_with_H(jnp.asarray(Hb), jnp.asarray(g), jnp.asarray(h))
+    _close(sol.x.numpy(), rs.x)
+    assert (sol.converged.numpy() != np.asarray(rs.converged)).sum() <= 1
+    bad = torch.tensor(Hb[:2]).clone()
+    bad[1] = -torch.eye(bad.shape[-1])             # a lane the library cannot factor
+    L = t_fused._library_factor(bad)
+    assert bool(torch.isfinite(L[0]).all()) and bool(torch.isnan(L[1]).all())

@@ -169,7 +169,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         "for m in ('ops.chol_kernel', 'ops.ipm_fused', 'runtime.scenario', 'ops.ipm',\n"
         "          'ops.chol', 'ops.mono_kernel', 'controllers.sqp', 'controllers.lmpc',\n"
         "          'controllers.nmpc', 'models.collocation', 'models.linear',\n"
-        "          'ops.riccati', 'ops.sparse_ipm', 'ops.sparse_gn'):\n"
+        "          'ops.riccati', 'ops.sparse_ipm', 'ops.sparse_gn', 'runtime.sharding',\n"
+        "          'ops.riccati_sharded', 'entry', 'examples.fleet_100k',\n"
+        "          'examples.scenario_sweep'):\n"
         "    assert 'lbmpc_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'lbmpc_tpu' or m.startswith('lbmpc_tpu.')]\n"

@@ -258,8 +258,10 @@ def test_build_time_refusals(name, kw):
 
 
 def test_mesh_raises():
+    """A mesh that is not a 'stage' mesh raises (the stage-sharded sweeps:
+    tests/test_torch_riccati_sharded.py)."""
     _, _, _, sg, _, _, args = _gn_case("casadi", "first", True, N=4)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="'stage' mesh"):
         t_gn.solve_sparse_gn(interop.from_reference(sg, device="cpu"), *_lanes(args),
                              iters=2, mesh=object())
 

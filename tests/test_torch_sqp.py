@@ -209,9 +209,9 @@ def test_xla_route_hybrid_matches_reference(setup, monkeypatch):
 
 
 def test_unported_routes_raise(setup, monkeypatch):
-    """What stays unported raises ValueError: jac_mode="jacfwd", and a
-    repair backend or seed the reference does not have. What is ported now
-    builds: pallas_mono above nz 32 and for the casadi family (K3w), the
+    """What the reference does not have raises ValueError: a jac_mode, a
+    repair backend or seed outside its own. What is ported builds:
+    jac_mode="jacfwd", pallas_mono above nz 32 and for the casadi family (K3w), the
     vmapped repair with either seed and the ws-seeded fused repair, pallas
     at nz=41, pallas_full for the casadi family, and the xla route with
     LBMPC_CHOL_BLOCKED=1 at n_p >= 32."""
@@ -231,8 +231,9 @@ def test_unported_routes_raise(setup, monkeypatch):
                  **kw).repair_backend == "vmapped"
     with pytest.raises(ValueError, match="repair_backend"):
         _port(ts, t_sqp.make_lbmpc_solver_hybrid, repair_backend="scan", **kw)
-    with pytest.raises(ValueError, match="not ported"):
-        _port(ts, qp_kernel="xla", jac_mode="jacfwd", **kw)
+    assert _port(ts, qp_kernel="xla", jac_mode="jacfwd", **kw).jac_mode == "jacfwd"
+    with pytest.raises(ValueError, match="jac_mode"):
+        _port(ts, qp_kernel="xla", jac_mode="jacrev", **kw)
     casadi_full = _port(ts, **{**kw, "family": "casadi"})    # pallas_full, K1w
     assert casadi_full.qp_kernel == "pallas_full" and casadi_full.gn.wide
     with pytest.raises(ValueError, match="raw_qpwarm needs"):
@@ -244,3 +245,36 @@ def test_unported_routes_raise(setup, monkeypatch):
     s41 = _port(ts40, qp_kernel="xla", **kw)        # nz=41 -> n_p=48: K6
     assert not any(f.blocked for f in s13._fused.values())
     assert all(f.blocked for f in s41._fused.values())
+
+
+def test_jacfwd_matches_manual_and_reference(setup, monkeypatch):
+    """jac_mode="jacfwd": torch.func.jacfwd of one lane's residual, vmapped
+    over the lanes, against the hand-derived Jacobian and the reference's
+    jacfwd Jacobian (float32 roundoff), and the xla-route solve against the
+    manual one (the float32 class of tests/test_sqp_fused.py:106)."""
+    monkeypatch.setenv("LBMPC_CHOL", "xla")
+    from lbmpc_tpu.controllers.sqp_fused import make_lbmpc_solver_fused
+
+    cfg, sc, qp, w, ts, data, kw = setup
+    ref = make_lbmpc_solver_fused(qp, sc.A, sc.B, sc.ocp.Ks, w, sqp_iters=2, ipm_iters=16,
+                                  tile=B, jac_mode="jacfwd", **kw)
+    monkeypatch.delenv("LBMPC_CHOL")
+    fwd = _port(ts, qp_kernel="xla", sqp_iters=2, ipm_iters=16, jac_mode="jacfwd", **kw)
+    man = _port(ts, qp_kernel="xla", sqp_iters=2, ipm_iters=16, **kw)
+    dx, wins, _ = _port_inputs(data)
+    dx, wins = dx.float(), wins.to(torch.float32)
+    z = 0.01 * torch.randn(B, N + 1, generator=torch.Generator().manual_seed(3))
+    J_fwd = fwd.gn.jacfwd(z, dx, wins)
+    J_man = man.gn.res_jac(z, dx, wins)[1]
+    jx, jw, _ = _jax_inputs(data)
+    with jax.default_matmul_precision("highest"):
+        J_ref = np.asarray(ref._resjac_b(jnp.asarray(z.numpy()), jx, jw)[1])
+    scale = J_ref.__abs__().max()
+    assert J_fwd.shape == J_man.shape == J_ref.shape
+    assert (J_fwd - J_man).abs().max().item() < 1e-5 * scale
+    assert np.abs(J_fwd.numpy() - J_ref).max() < 1e-5 * scale
+    zf, cf = fwd(*_port_inputs(data))
+    zm, cm = man(*_port_inputs(data))
+    d = (zf - zm).abs()
+    assert d.median().item() < 1e-6 and d.max().item() < 5e-3
+    assert bool(cf.all()) and bool(cm.all())
