@@ -53,7 +53,9 @@ counts set to 0 just before it and read just after:
   budget, traced (the kernels' device time under their names, held to the
   launch counters) and set against the H100 roofline; checkpoint and resume
   of LBMPC_N40 at full width (a batch of 256 and one lane, resumed equal
-  to uninterrupted within 1e-12); the tracking sandbox's episodes on the
+  to uninterrupted within 1e-12) and the float64 per-problem stack's lane
+  bits (a lane of a batch of B equals its solve alone, bit for bit, at B
+  from 1 to 8192); the tracking sandbox's episodes on the
   card against the CPU, and response_info on the card against the CPU;
 - the multi-device layer (runtime/sharding, ops/riccati_sharded; no kernel
   of its own): the bench fused solve split over two shards of the card
@@ -62,7 +64,8 @@ counts set to 0 just before it and read just after:
   global_solve_stats; an NCCL group of world size 1 in this process and two
   gloo processes sharing the card, each running global_solve_stats and
   lqr_cross_sharded; the stage split at N=304, the DMS flagship's sparse GN
-  at N=300 over 8 stage shards, and phase 38's batch resumed over the mesh;
+  at N=300 over 8 stage shards, and phase 38's batch resumed over the mesh
+  (bit for bit phase 38's unsplit run);
   the port's entry and examples; and the fused solver's refine=True (one
   more K5c an IPM iteration), LBMPC_CHOL=xla (no K5) and jac_mode="jacfwd".
 It times the kernels, their plain versions, the library yardsticks, the
@@ -116,6 +119,7 @@ NMPC_BATCH, NMPC_BATCH_STEPS = 1024, 10
 SPARSE_BATCH = 1024           # the sparse LMPC's batch (phase 34)
 SPARSE_LOOP_LANES, SPARSE_LOOP_STEPS = 64, 4
 CK_BATCH, CK_STEPS = 256, 20  # phase 38's checkpointed batch and steps
+LANE_BITS_B = (1, 2, 3, 4, 8, 16, 128, 256, 1000, 1024, 2048, 8192)   # phase 38's sweep
 PROTOCOL_RUNS, PROTOCOL_ITERS = 5, 20   # phase 37's solve_time_protocol
 KERNELS_PHASE = 33            # the kernels line, printed last
 LAST_PHASE = 44
@@ -2995,8 +2999,8 @@ def checkpoint_phase(dev, tag: str):
     (N=40, q=100, float64, the preset's solver), CK_BATCH seeded states
     around dx_init: CK_STEPS steps uninterrupted against half of them, a
     save / load through a file, and resume for the rest; then one lane
-    through the single-lane path. Returns the batch's (cfg, uninterrupted
-    result, checkpointed state, initial states)."""
+    through the single-lane path; then lane_bits_sweep. Returns the batch's
+    (cfg, uninterrupted result, checkpointed state, initial states)."""
     import torch
 
     import lbmpc_tpu_torch as lt
@@ -3051,8 +3055,57 @@ def checkpoint_phase(dev, tag: str):
                 and torch.equal(part2.final_window.valid, full.final_window.valid),
                 f"checkpoint {name}: the window's count and valid carry across")
         out[name] = (cfg, full, state, lanes)
+    lane_bits_sweep(dev, tag, cfg)
     log(f"  phase 38 took {time.time() - t_phase:.1f} s")
     return out["batch"]
+
+
+def lane_bits_sweep(dev, tag: str, cfg) -> None:
+    """Phase 38's second part: the per-problem stack's lane bits. The
+    LBMPC_N40 solve at full width (N=40, q=100; sqp 2, ipm 10: the depth
+    cut) in float64 on seeded lanes: every lane of a batch of B
+    (LANE_BITS_B) equals the same lane of the largest batch, and lanes 0
+    and B-1 their solves alone, bit for bit (ops/lanes' forms). Float32 on
+    the card keeps the batch's own forms (ops/lanes.batch_forms), so it is
+    not swept here (tools/f32_exact_forms.py sweeps it on the exact ones)."""
+    import torch
+
+    from lbmpc_tpu_torch.oracle import DataWindow
+    from lbmpc_tpu_torch.runtime.scenario import build_scenario
+
+    t0 = time.time()
+    bmax, q = max(LANE_BITS_B), cfg.oracle.q
+    rng = np.random.default_rng(16)
+    for dt in ("float64",):
+        c = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, dtype=dt,
+                                                                sqp_iters=2, ipm_iters=10))
+        sc = build_scenario(c, device=dev)
+        f = getattr(torch, dt)
+        T = lambda a: torch.as_tensor(a, dtype=f, device=dev)
+        dx = T(np.asarray(c.dx_init) + 0.01 * rng.standard_normal((bmax, 4)))
+        win = DataWindow(T(0.1 * rng.standard_normal((bmax, q, 3))),
+                         T(0.001 * rng.standard_normal((bmax, q, 4))), T(np.ones((bmax, q))),
+                         torch.full((bmax,), q, dtype=torch.int32, device=dev))
+        z = T(0.01 * rng.standard_normal((bmax, sc.nz)))
+        part = lambda i, j: (dx[i:j], DataWindow(*(a[i:j] for a in win)), z[i:j])
+        z_all, c_all = sc.solve(*part(0, bmax))
+        parted, solo_parted = [], []
+        for B in LANE_BITS_B:
+            zb, cb = sc.solve(*part(0, B))
+            if not (torch_equal(zb, z_all[:B]) and torch.equal(cb, c_all[:B])):
+                parted.append(B)
+            for i in sorted({0, B - 1}):
+                zs, cs_ = sc.solve(*part(i, i + 1))
+                if not (torch_equal(zs[0], z_all[i]) and bool(cs_[0] == c_all[i])):
+                    solo_parted.append((B, i))
+        sync(dev)
+        log(f"  lane bits, {dt} (N={c.ocp.N}, q={q}, sqp 2, ipm 10): batches whose lanes part "
+            f"from the same lanes of {bmax}: {parted}; lanes whose solve alone parts: "
+            f"{solo_parted}; conv {c_all.float().mean().item():.4f} {tag}")
+        require(not parted and not solo_parted and bool(torch.isfinite(z_all).all()),
+                f"per-problem {dt} solve: a lane's bits at B = {LANE_BITS_B[0]}..{bmax} are "
+                "its solve alone's")
+    log(f"  lane bits sweep {time.time() - t0:.1f} s")
 
 
 def sandbox_phase(dev, tag: str, ck) -> None:
@@ -3439,9 +3492,9 @@ def mesh_phases(dev, tag: str, args, cfg, sc, dx, win, ck) -> None:
             and dth < 1e-7 * scale, "stage-sharded GN within 1e-7 * scale of mesh=None")
     # the reference's test_sharded_fleet_checkpoint_resume: interrupted over
     # the mesh, resumed over it, against the uninterrupted run over it; and
-    # beside phase 38's unsplit run (a shard's 128 lanes round apart from
-    # 256: the float64 per-problem stack's products are cuBLAS's, which
-    # picks its kernels by the batch's size)
+    # against phase 38's unsplit run, bit for bit: the per-problem stack's
+    # products take ops/lanes' forms, so a shard's 128 lanes round as they
+    # do among 256
     ck_cfg, full, _, dx_ck = ck
     half = CK_STEPS // 2
     ck_sc = build_scenario(ck_cfg, device=dev)
@@ -3475,6 +3528,7 @@ def mesh_phases(dev, tag: str, args, cfg, sc, dx, win, ck) -> None:
         + f", bit for bit {bits_u} {tag}")
     require(max(d_s.values()) <= 1e-12,
             "resume over a mesh equals the uninterrupted run over it within 1e-12")
+    require(bits_u, "resume over a mesh equals phase 38's unsplit run bit for bit")
     times[42] = time.time() - t_phase
     log(f"  phase 42 took {times[42]:.1f} s")
 

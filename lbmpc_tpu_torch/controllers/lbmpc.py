@@ -21,7 +21,7 @@ import torch
 from lbmpc_tpu_torch.controllers.condensed import CondensedQP
 from lbmpc_tpu_torch.controllers.sqp import _ALPHAS, sqp_solve
 from lbmpc_tpu_torch.device import resolve_device
-from lbmpc_tpu_torch.ops.lanes import lane_sum
+from lbmpc_tpu_torch.ops.lanes import lane_left, lane_mm, lane_rowsum, lane_sum, on_min_lanes
 from lbmpc_tpu_torch.oracle import (DataWindow, make_xi, nw_estimate,
                                     nw_estimate_and_jac)
 
@@ -83,6 +83,8 @@ def make_residual_and_jac(
     with the window batched over the same B lanes. family='fmincon':
     u_k = Ks x_k + c_k and running stages 0..N-3 (costLBMPC.m quirk);
     family='casadi': u_k = c_k and delta-scaled running stages 0..N-1.
+    The products take ops/lanes' forms, so a lane's bits do not depend on
+    the batch's size (where ops/lanes.batch_forms, they are the plain ones).
     """
     dev = resolve_device(device)
     N, n, m = qp.N, qp.n, qp.m
@@ -109,11 +111,11 @@ def make_residual_and_jac(
 
     def _finish(theta, xs, us, xN):
         Bsz = theta.shape[0]
-        xa = theta @ LAM.T                                          # (B, n)
-        ua = theta @ PSI.T                                          # (B, m)
-        rx = scale * ((xs[:, :n_run] - xa[:, None]) @ Lq.T)
-        ru = scale * ((us[:, :n_run] - ua[:, None]) @ Lr.T)
-        rP = (xN - xa) @ Lp.T
+        xa = lane_mm(theta, LAM)                                    # (B, n)
+        ua = lane_mm(theta, PSI)                                    # (B, m)
+        rx = scale * lane_mm(xs[:, :n_run] - xa[:, None], Lq)
+        ru = scale * lane_mm(us[:, :n_run] - ua[:, None], Lr)
+        rP = lane_mm(xN - xa, Lp)
         rT = sqrtT * (xa - xs_ref)
         return torch.cat([rx.reshape(Bsz, -1), ru.reshape(Bsz, -1), rP, rT],
                          dim=1)
@@ -123,8 +125,8 @@ def make_residual_and_jac(
         x = dx0
         xs, us = [], []
         for k in range(N):
-            u = x @ Ksd.T + cs[:, k] if fmincon else cs[:, k]
-            x1 = (x @ Ad.T + u @ Bd.T
+            u = lane_mm(x, Ksd) + cs[:, k] if fmincon else cs[:, k]
+            x1 = (lane_mm(x, Ad) + lane_mm(u, Bd)
                   + nw_estimate(make_xi(x, u), window, bandwidth, ridge))
             xs.append(x)
             us.append(u)
@@ -139,16 +141,16 @@ def make_residual_and_jac(
         xs, us, Ss, dudzs = [], [], [], []
         for k in range(N):
             if fmincon:
-                u = x @ Ksd.T + cs[:, k]
-                dudz = Ksd @ S + Eks[k]
+                u = lane_mm(x, Ksd) + cs[:, k]
+                dudz = lane_left(Ksd, S) + Eks[k]
             else:
                 u = cs[:, k]
                 dudz = Eks[k].expand(Bsz, m, nz)
             gv, Jg = nw_estimate_and_jac(make_xi(x, u), window, bandwidth,
                                          ridge)
             dxidz = torch.cat([S[:, :2], dudz], dim=1)   # xi = [x0, x1, u]
-            x1 = x @ Ad.T + u @ Bd.T + gv
-            S1 = Ad @ S + Bd @ dudz + Jg @ dxidz
+            x1 = lane_mm(x, Ad) + lane_mm(u, Bd) + gv
+            S1 = lane_left(Ad, S) + lane_left(Bd, dudz) + Jg @ dxidz
             xs.append(x)
             us.append(u)
             Ss.append(S)
@@ -156,9 +158,9 @@ def make_residual_and_jac(
             x, S = x1, S1
         Ss = torch.stack(Ss[:n_run], 1)                   # (B, n_run, n, nz)
         dudzs = torch.stack(dudzs[:n_run], 1)             # (B, n_run, m, nz)
-        Jrx = scale * (Lq @ (Ss - LAM_T))
-        Jru = scale * (Lr @ (dudzs - PSI_T))
-        JrP = Lp @ (S - LAM_T)
+        Jrx = scale * lane_left(Lq, Ss - LAM_T)
+        Jru = scale * lane_left(Lr, dudzs - PSI_T)
+        JrP = lane_left(Lp, S - LAM_T)
         JrT = (sqrtT * LAM_T).expand(Bsz, n, nz)
         e = _finish(z[:, N * m:], torch.stack(xs, 1), torch.stack(us, 1), x)
         J = torch.cat([Jrx.reshape(Bsz, -1, nz), Jru.reshape(Bsz, -1, nz),
@@ -192,6 +194,10 @@ def make_lbmpc_solver(
     by ops/ipm (`ipm_iters` iterations; mixed=True: float32 + a float64
     refinement, with `dtype` float64). The inputs are cast to `dtype` on the
     solver's device; `converged` is the last QP's flag, as in the reference.
+    A lane's bits do not depend on the batch's size or the lane's place in
+    it: the products and sums take ops/lanes' forms, and on the card a solve
+    runs at least ops/lanes.MIN_LANES lanes (on_min_lanes); float32 on the
+    card keeps the batch's own forms (ops/lanes.batch_forms).
     family='fmincon': u_k = Ks x_k + c_k, running stages 0..N-3;
     family='casadi': u_k = c_k, delta-scaled running stages 0..N-1."""
     dev = resolve_device(device)
@@ -202,8 +208,10 @@ def make_lbmpc_solver(
         ridge=ridge, dx_ref=dx_ref, dtype=dtype, device=dev)
 
     def solve(dx0, window: DataWindow, z_ws):
-        dx0 = dx0.to(dev, dtype)
-        window = window.to(dtype, dev)
+        return on_min_lanes(solve_lanes, dx0.to(dev, dtype), window.to(dtype, dev),
+                            z_ws.to(dev, dtype))
+
+    def solve_lanes(dx0, window: DataWindow, z_ws):
         Bsz = dx0.shape[0]
 
         def cost(z):
@@ -214,12 +222,12 @@ def make_lbmpc_solver(
             else:
                 tile = lambda a: a.repeat((k,) + (1,) * (a.ndim - 1))
                 e = residual(z, tile(dx0), DataWindow(*(tile(a) for a in window)))
-            return lane_sum(e * e)
+            return lane_rowsum(e * e)
 
-        h = h0d + dx0 @ Hpd.T
-        out = sqp_solve(cost, lambda z: residual(z, dx0, window), Gd, h,
-                        z_ws.to(dev, dtype), iters=sqp_iters, ipm_iters=ipm_iters,
-                        mixed=mixed, res_jac_fn=lambda z: res_jac(z, dx0, window))
+        h = h0d + lane_mm(dx0, Hpd)
+        out = sqp_solve(cost, lambda z: residual(z, dx0, window), Gd, h, z_ws,
+                        iters=sqp_iters, ipm_iters=ipm_iters, mixed=mixed,
+                        res_jac_fn=lambda z: res_jac(z, dx0, window))
         return out.z, out.qp_converged
 
     return solve
@@ -398,7 +406,7 @@ def make_casadi_warm_start(qp: CondensedQP, A, B, Ks, dtype=torch.float64,
 
     def warm(z, dx_used, dx_next, window):
         cs = z[:, :N * m]
-        dxN = dx_used @ SxN.T + cs @ ScN.T
-        return torch.cat([cs[:, m:], dxN @ Ksd.T, z[:, N * m:]], dim=1)
+        dxN = lane_mm(dx_used, SxN) + lane_mm(cs, ScN)
+        return torch.cat([cs[:, m:], lane_mm(dxN, Ksd), z[:, N * m:]], dim=1)
 
     return warm

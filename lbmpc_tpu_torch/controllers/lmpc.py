@@ -16,6 +16,7 @@ import torch
 from lbmpc_tpu_torch.controllers.condensed import CondensedQP
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.ops.ipm import IPMSolution, solve_qp, solve_qp_mixed
+from lbmpc_tpu_torch.ops.lanes import lane_mm, on_min_lanes
 
 
 class QPDevice(NamedTuple):
@@ -42,13 +43,17 @@ def make_lmpc_solver(qp: CondensedQP, ipm_iters: int = 30, dtype=torch.float64,
     """Returns solve(dx (B, n)) -> (z (B, nz), IPMSolution): the QP
     min 1/2 z'Hz + (Gg dx + g0)'z s.t. G z <= h0 + Hp dx per lane.
     mixed=True routes through solve_qp_mixed (float32 IPM + float64
-    refinement, on float64 tensors)."""
+    refinement, on float64 tensors). A lane's bits do not depend on the
+    batch's size (ops/lanes.lane_mm here, ops/ipm's forms, and on the card
+    at least ops/lanes.MIN_LANES lanes: on_min_lanes)."""
     dev = QPDevice.from_condensed(qp, torch.float64 if mixed else dtype, device)
 
     def solve(dx: torch.Tensor) -> tuple[torch.Tensor, IPMSolution]:
-        dx = dx.to(dev.G.device, dev.G.dtype)
-        g = dx @ dev.Gg.T + dev.g0
-        h = dev.h0 + dx @ dev.Hp.T
+        return on_min_lanes(solve_lanes, dx.to(dev.G.device, dev.G.dtype))
+
+    def solve_lanes(dx: torch.Tensor) -> tuple[torch.Tensor, IPMSolution]:
+        g = lane_mm(dx, dev.Gg) + dev.g0
+        h = dev.h0 + lane_mm(dx, dev.Hp)
         if mixed:
             sol = solve_qp_mixed(dev.H, g, dev.G, h, f32_iters=ipm_iters)
         else:

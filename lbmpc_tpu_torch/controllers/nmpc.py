@@ -44,7 +44,7 @@ from lbmpc_tpu_torch.controllers.sqp import sqp_solve_nonlinear_constraints
 from lbmpc_tpu_torch.device import resolve_device
 from lbmpc_tpu_torch.models.collocation import (collocation_step,
                                                 collocation_step_tangent)
-from lbmpc_tpu_torch.ops.lanes import exact_sum
+from lbmpc_tpu_torch.ops.lanes import exact_sum, on_min_lanes
 from lbmpc_tpu_torch.sets.terminal import ConstraintSet
 
 # mgcm_ode's linear part on the columns [x1, x2, x3, x4, u, 1] (rows 4 and 5
@@ -78,15 +78,6 @@ def _ode_dual(S, lin_t, w_cube, w_root, w_quot):
     F[..., 1].addcmul_((r * w_root)[:, None], S[..., 2])
     F[..., 1].addcmul_((x3 / r)[:, None] * w_quot, S[..., 1])
     return F
-
-
-# On the card a solve runs at least this many lanes: with one, cuSOLVER and
-# cuBLAS take their unbatched paths, which round apart from the batched ones,
-# and the IPM's stopping test turns such roundoff into a one-iteration
-# difference (3e-9 over 10 NMPC_N50 steps on the card). With the
-# exact sums and products of ops/lanes, a lane then gets the same bits at
-# any batch size.
-MIN_LANES = 2
 
 
 class _Graphed:
@@ -391,16 +382,16 @@ def make_nmpc_solver(
     def solve(dx0, window, z_ws):
         dx0 = dx0.to(dtype)
         z_ws = z_ws.to(dtype)
-        B = dx0.shape[0]
-        # (collocation's one-lane graph is worth more than its lane bits)
-        pad = (MIN_LANES - B if dev.type == "cuda" and B < MIN_LANES
-               and prediction != "collocation" else 0)
-        if pad:
-            # copies of the last lane: a lane's bits do not depend on B
-            dx0 = torch.cat([dx0, dx0[-1:].expand(pad, -1)])
-            z_ws = torch.cat([z_ws, z_ws[-1:].expand(pad, -1)])
-        z, conv = (graphed or eager)(dx0, z_ws)
-        return (z[:B], conv[:B]) if pad else (z, conv)
+        # on the card a solve runs at least ops/lanes.MIN_LANES lanes
+        # (on_min_lanes): with one, cuSOLVER and cuBLAS take their unbatched
+        # paths, and the IPM's stopping test turns their roundoff into a
+        # one-iteration difference (3e-9 over 10 NMPC_N50 steps on the card);
+        # with the exact sums and products of ops/lanes a lane then gets the
+        # same bits at any batch size. Collocation runs one lane as it is:
+        # its one-lane graph is worth more than its lane bits.
+        if prediction == "collocation":
+            return (graphed or eager)(dx0, z_ws)
+        return on_min_lanes(graphed or eager, dx0, z_ws)
 
     solve.nz = nz
     # the pieces, for the tools that time them

@@ -31,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from lbmpc_tpu_torch.ops.chol import chol_batched, solve_tri_lower, solve_tri_upper_t
-from lbmpc_tpu_torch.ops.lanes import exact_mv, exact_sum, lane_sum
+from lbmpc_tpu_torch.ops.lanes import batch_forms, lane_gemm, lane_mm, lane_mv, lane_rowsum
 
 
 class IPMSolution(NamedTuple):
@@ -47,19 +47,16 @@ class IPMSolution(NamedTuple):
     farkas_gap: torch.Tensor  # (B,) -h'y for the normalized candidate ray y
 
 
-def _mv_gemm(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """A v for a shared (r, c) or batched (B, r, c) A and v (B, c)."""
-    return (A @ v[..., None])[..., 0]
+    if A.ndim == 3 or batch_forms(v):
+        return lane_mv(A, v)
+    return lane_mm(v, A)
 
 
-def _mtv_gemm(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _mtv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """A' v for a shared (r, c) or batched (B, r, c) A and v (B, r)."""
-    return (A.transpose(-1, -2) @ v[..., None])[..., 0]
-
-
-def _mtv_exact(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """A' v in ops/lanes' exact form (A v is ops/lanes.exact_mv)."""
-    return exact_mv(A.transpose(-1, -2), v)
+    return _mv(A.transpose(-1, -2), v)
 
 
 def _step_length(v: torch.Tensor, dv: torch.Tensor, tau: float) -> torch.Tensor:
@@ -69,12 +66,8 @@ def _step_length(v: torch.Tensor, dv: torch.Tensor, tau: float) -> torch.Tensor:
     return torch.clamp(tau * ratio.amin(dim=-1), max=1.0)
 
 
-def _dot_lane(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return lane_sum(a * b)
-
-
-def _dot_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return exact_sum(a * b)
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return lane_rowsum(a * b)
 
 
 def _amax_abs(a: torch.Tensor) -> torch.Tensor:
@@ -88,13 +81,11 @@ def solve_qp(H, g, G, h, iters: int = 30, tol: float = 1e-10,
     Float32 matrix products run in full float32 (the package turns TF32 off),
     as the reference runs them at HIGHEST. chol_failed (B,) bool: see
     ops/chol.chol_batched (no device read; the caller checks the flags).
-    With a G per lane (the NMPC's linearized constraints) the
-    matrix-vector products and sums take ops/lanes' exact forms, so a
-    lane's bits do not depend on the batch's size (on the card, from two
-    lanes up). With a shared G they keep the batch's matrix products and
-    lane_sum: the exact forms there moved the float32 repair's rounding
-    enough to take chip_smoke.py's float32 golden episode out of its
-    envelope before step 40."""
+    Every product and sum takes a form of ops/lanes (lane_mm with a shared
+    matrix, lane_mv with one per lane, lane_rowsum), so a lane's bits do not
+    depend on the batch's size or the lane's place in it, on the card from
+    ops/lanes.MIN_LANES lanes up (the solvers pad to it: on_min_lanes);
+    float32 on the card keeps the batch's own forms (ops/lanes.batch_forms)."""
     return _solve(H, g, G, h, iters, tol, tau, None, chol_failed)
 
 
@@ -125,10 +116,6 @@ def _solve(H, g, G, h, iters, tol, tau, init, chol_failed=None) -> IPMSolution:
     dtype, dev = g.dtype, g.device
     Bsz, n = g.shape
     m = h.shape[-1]
-    if G.ndim == 3:
-        mv, mtv, dot = exact_mv, _mtv_exact, _dot_exact
-    else:
-        mv, mtv, dot = _mv_gemm, _mtv_gemm, _dot_lane
     In = torch.eye(n, dtype=dtype, device=dev)
     finfo = torch.finfo(dtype)
     tiny = float(finfo.tiny) * 1e8
@@ -137,7 +124,7 @@ def _solve(H, g, G, h, iters, tol, tau, init, chol_failed=None) -> IPMSolution:
 
     if init is None:
         x = torch.zeros(Bsz, n, dtype=dtype, device=dev)
-        s = torch.clamp(h - mv(G, x), min=1.0)
+        s = torch.clamp(h - _mv(G, x), min=1.0)
         z = torch.ones(Bsz, m, dtype=dtype, device=dev)
     else:
         x, s, z = (a.to(dtype) for a in init)
@@ -148,28 +135,29 @@ def _solve(H, g, G, h, iters, tol, tau, init, chol_failed=None) -> IPMSolution:
     frozen = torch.zeros(Bsz, dtype=torch.bool, device=dev)
     first_it = torch.full((Bsz,), iters, dtype=torch.int64, device=dev)
     for i in range(iters):
-        rd = mv(H, x) + g + mtv(G, z)
-        rp = mv(G, x) + s - h
+        rd = _mv(H, x) + g + _mtv(G, z)
+        rp = _mv(G, x) + s - h
         s_safe = torch.clamp(s, min=tiny)
         d = torch.clamp(z / s_safe, max=d_cap)
-        M = H + (Gt * d[:, None, :]) @ G
+        GtD = Gt * d[:, None, :]
+        M = H + (lane_gemm(GtD, Gt) if G.ndim == 2 else GtD @ G)
         # tiny diagonal regularization keeps the factorization alive for
         # rank-deficient LP normal matrices late in the solve
         reg = 1e-12 * (1.0 + M.diagonal(dim1=-2, dim2=-1).sum(dim=-1) / n)
         L = chol_batched(M + reg[:, None, None] * In, chol_failed)
 
         def kkt_solve(rc):
-            rhs = -(rd + mtv(G, d * rp) - mtv(G, rc / s_safe))
+            rhs = -(rd + _mtv(G, d * rp) - _mtv(G, rc / s_safe))
             dx = solve_tri_upper_t(L, solve_tri_lower(L, rhs))
-            Gdx = mv(G, dx)
+            Gdx = _mv(G, dx)
             return dx, -rp - Gdx, d * (rp + Gdx) - rc / s_safe
 
-        mu = dot(s, z) / m
+        mu = _dot(s, z) / m
         # predictor
         dx_a, ds_a, dz_a = kkt_solve(s * z)
         a_p = _step_length(s, ds_a, 1.0)
         a_d = _step_length(z, dz_a, 1.0)
-        mu_aff = dot(s + a_p[:, None] * ds_a, z + a_d[:, None] * dz_a) / m
+        mu_aff = _dot(s + a_p[:, None] * ds_a, z + a_d[:, None] * dz_a) / m
         sigma = (mu_aff / torch.clamp(mu, min=tiny)) ** 3
         # corrector
         rc = s * z + ds_a * dz_a - (sigma * mu)[:, None]
@@ -177,7 +165,7 @@ def _solve(H, g, G, h, iters, tol, tau, init, chol_failed=None) -> IPMSolution:
         a_p = _step_length(s, ds, tau)[:, None]
         a_d = _step_length(z, dz, tau)[:, None]
 
-        done = ((mu < tol_eff * (1.0 + dot(s, z).abs()))
+        done = ((mu < tol_eff * (1.0 + _dot(s, z).abs()))
                 & (_amax_abs(rp) < tol_eff * h_scale * 1e2)
                 & (_amax_abs(rd) < tol_eff * g_scale * 1e2))
         first_it = torch.where(done & ~frozen, i, first_it)
@@ -187,9 +175,9 @@ def _solve(H, g, G, h, iters, tol, tau, init, chol_failed=None) -> IPMSolution:
         z = torch.where(keep, z, z + a_d * dz)
         frozen = frozen | done
 
-    rd = mv(H, x) + g + mtv(G, z)
-    rp = mv(G, x) + s - h
-    sz = dot(s, z)
+    rd = _mv(H, x) + g + _mtv(G, z)
+    rp = _mv(G, x) + s - h
+    sz = _dot(s, z)
     mu = sz / m
     conv_tol = 1e-7 if dtype == torch.float64 else 2e-4
     converged = (mu < conv_tol * (1.0 + sz.abs())) & (_amax_abs(rp) < conv_tol * h_scale)
@@ -203,15 +191,23 @@ def _solve(H, g, G, h, iters, tol, tau, init, chol_failed=None) -> IPMSolution:
     GtG = Gt @ G + (1e-12 * (1.0 + Gmax ** 2))[..., None, None] * In
     # GtG is SPD by its ridge: a Cholesky solve, which reads nothing from the
     # device when chol_failed is given (a general solve checks its pivots on
-    # the host)
+    # the host); for a shared G, outside batch_forms, its one inverse (two
+    # triangular solves on the identity), applied as lane_mm: the two solves
+    # on the lanes' right-hand sides take a path picked by B
     Lg = chol_batched(GtG, chol_failed)
-    y = torch.clamp(y - mv(G, solve_tri_upper_t(Lg, solve_tri_lower(Lg, mtv(G, y)))),
-                    min=0.0)
+    Gty = _mtv(G, y)
+    if G.ndim == 2 and not batch_forms(y):
+        Li = torch.linalg.solve_triangular(Lg, In, upper=False)
+        proj = lane_mm(Gty, torch.linalg.solve_triangular(Lg.mT, Li, upper=True))
+    else:
+        proj = solve_tri_upper_t(Lg, solve_tri_lower(Lg, Gty))
+    y = torch.clamp(y - _mv(G, proj), min=0.0)
     ynorm = _amax_abs(y)
     y = y / torch.clamp(ynorm, min=tiny)[:, None]
-    farkas_gap = -dot(h, y)
+    farkas_gap = -_dot(h, y)
     infeasible = (~converged & (ynorm > 0.1) & (farkas_gap > cert_tol * h_scale)
-                  & (_amax_abs(mtv(G, y)) < cert_tol * (1.0 + Gmax)))
+                  & (_amax_abs(_mtv(G, y)) < cert_tol * (1.0 + Gmax)))
     return IPMSolution(x=x, z=z, s=s, mu=mu, primal_res=_amax_abs(rp),
                        dual_res=_amax_abs(rd), converged=converged, iters=first_it,
                        infeasible=infeasible, farkas_gap=farkas_gap)
+

@@ -14,11 +14,25 @@ That a lane's bits do not depend on the batch's size either needs more
 (measured on the card): the reduction kernel splits a long row over more
 threads when there are few rows, and cuBLAS picks its batched
 matrix-vector product's kernel by the batch count, while sums of rows of
-at most 128 entries and its two-column product keep one order. exact_sum
-and exact_mv take those forms; the NMPC's solves use them, on at least two
-lanes, which keeps cuSOLVER on its batched paths. exact_rows gives a
-matrix product's rows the same bits at any B; the fused SQP's merit and
-flag use it.
+128 entries or fewer than 64 and its two-column product keep one order. exact_sum
+and exact_mv take those forms; the per-problem and NMPC solves use them, on
+at least MIN_LANES lanes, which keeps cuSOLVER on its batched paths.
+exact_rows gives a matrix product's rows the same bits at any B; the fused
+SQP's merit and flag use it.
+
+The per-problem stack (its LBMPC and LMPC solvers, the closed loop and the
+oracle) takes the lane_* forms below, one set a device: on the card FMAs
+in order over a contraction of at most CHAIN_TERMS terms, exact_rows over
+a longer one, exact_mv, exact_sum (over the NW window's axis too: a
+reduction over an inner axis splits it by the number of outputs), and a
+solve of at least MIN_LANES lanes (on_min_lanes); on the CPU one MKL
+product of at least CPU_ROWS rows and two columns (a product of fewer
+rows, or of one column, takes paths that round apart by the count), a
+row's own (1, c) product over a short float32 contraction, and the
+batched products and the window's sums as they are
+(tools/split_lane_bits.py --per-problem and tests/test_torch_lane_bits.py
+sweep them). Float32 on the card keeps the batch's own products
+(batch_forms).
 """
 
 from __future__ import annotations
@@ -50,10 +64,17 @@ EXACT_CHUNK = 128
 def exact_sum(v: torch.Tensor) -> torch.Tensor:
     """v.sum(dim=-1) in chunks of EXACT_CHUNK entries, then over the chunks:
     a row sums in the same order whatever the batch's size and the row's
-    place in it."""
+    place in it. On the card a row of 64 to 127 entries is read by 64
+    threads when there are fewer than 16 rows and by 32 otherwise (aten
+    Reduce.cuh's block shape), so it is padded to EXACT_CHUNK, which is
+    read in vectors by 32 threads at any number of rows, as are rows of
+    fewer than 64 entries."""
     n = v.shape[-1]
     if n <= EXACT_CHUNK:
-        return F_.pad(v, (0, -n % ALIGN)).sum(dim=-1)
+        pad = -n % ALIGN
+        if v.is_cuda and n + pad >= 64:
+            pad = EXACT_CHUNK - n
+        return F_.pad(v, (0, pad)).sum(dim=-1)
     return F_.pad(v, (0, -n % EXACT_CHUNK)).unflatten(-1, (-1, EXACT_CHUNK)).sum(-1).sum(-1)
 
 
@@ -78,3 +99,135 @@ def exact_mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """A v per lane, A (B, r, c), v (B, c), as a two-column matrix product
     (the second column zero): its kernel does not depend on B."""
     return (A @ F_.pad(v[..., None], (0, 1)))[..., 0]
+
+
+# On the card a solve runs at least this many lanes: with one, cuSOLVER and
+# cuBLAS take their unbatched paths, which round apart from the batched ones
+# (the Cholesky factor, a batched matrix-vector product).
+MIN_LANES = 2
+
+
+def pad_lanes(a: torch.Tensor, n: int) -> torch.Tensor:
+    """a with its last lane copied onto the leading axis up to n lanes."""
+    return torch.cat([a, a[-1:].expand(n - a.shape[0], *a.shape[1:])])
+
+
+def on_lanes(fn, n: int, *args):
+    """fn(*args) on n lanes: each tensor of args (or of a tuple in args, a
+    DataWindow) padded with copies of its last lane up to n, and of fn's
+    outputs (tensors, or tuples of them) the batch's own lanes."""
+    B = next(a for a in args if isinstance(a, torch.Tensor)).shape[0]
+
+    def pad(a):
+        if isinstance(a, tuple):
+            return type(a)(*map(pad, a)) if hasattr(a, "_fields") else tuple(map(pad, a))
+        return pad_lanes(a, n) if isinstance(a, torch.Tensor) else a
+
+    def cut(a):
+        if isinstance(a, tuple):
+            return type(a)(*map(cut, a)) if hasattr(a, "_fields") else tuple(map(cut, a))
+        return a[:B] if isinstance(a, torch.Tensor) else a
+
+    return cut(fn(*map(pad, args)))
+
+
+def on_min_lanes(fn, *args):
+    """fn(*args), a solve whose arguments and outputs hold a lane each on
+    their leading axis, on at least MIN_LANES lanes on the card (on_lanes)."""
+    x = next(a for a in args if isinstance(a, torch.Tensor))
+    if x.is_cuda and x.shape[0] < MIN_LANES:
+        return on_lanes(fn, MIN_LANES, *args)
+    return fn(*args)
+
+
+def batch_forms(t: torch.Tensor) -> bool:
+    """Whether the per-problem stack keeps the batch's own forms for t (the
+    library's products, picked by B, and lane_sum): float32 on the card,
+    where chip_smoke.py's float32 phases (the golden episode of phase 29
+    sits at the edge of its envelope) hold with these products; one exact
+    set took phase 29 out of its envelope, the present one holds it
+    (tools/f32_exact_forms.py) but has not run through the others
+    (ROADMAP.md §3). The card's float64 and the CPU take the exact forms."""
+    return t.is_cuda and t.dtype == torch.float32
+
+
+def lane_rowsum(v: torch.Tensor) -> torch.Tensor:
+    """v.sum(dim=-1) in exact_sum's form (lane_sum's where batch_forms)."""
+    return lane_sum(v) if batch_forms(v) else exact_sum(v)
+
+
+def lane_sum_dim(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """v.sum(dim): on the card in exact_sum's form, the summed axis moved
+    last; on the CPU, whose sums keep one order at any B, and where
+    batch_forms, v.sum(dim) itself."""
+    if v.is_cuda and not batch_forms(v):
+        return exact_sum(v.movedim(dim, -1))
+    return v.sum(dim)
+
+
+def lane_mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A v per lane in exact_mv's form (the batched product where
+    batch_forms)."""
+    return (A @ v[..., None])[..., 0] if batch_forms(v) else exact_mv(A, v)
+
+
+# MKL: a product of fewer rows takes paths that round apart by the row
+# count (float32 below 16 rows, float64 below 4; tests/test_torch_lane_bits.py)
+CPU_ROWS = {torch.float32: 16, torch.float64: 4}
+CHAIN_TERMS = 8     # on the card, contractions up to this long run as FMAs
+
+
+def _fma_chain(a, b, c: int) -> torch.Tensor:
+    """sum_j a(j) * b(j) over j < c as the first product and then one FMA a
+    term (torch.addcmul), in the order of j (a matrix product's inner loop):
+    elementwise, so no kernel is picked by the batch's size."""
+    out = a(0) * b(0)
+    for j in range(1, c):
+        out = torch.addcmul(out, a(j), b(j))
+    return out
+
+
+def lane_mm(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """v @ M.T, v (..., c), M (r, c) shared, with every row of v (a lane, or
+    one of a lane's rows) given the same bits whatever the number of rows
+    and the row's place among them. On the card a contraction of at most
+    CHAIN_TERMS entries runs as _fma_chain, a longer one as exact_rows. On
+    the CPU it is lane_gemm's product, except that a float32 contraction of
+    at most CHAIN_TERMS entries, which would pad a few rows to 16, is a
+    batched product of (1, c) x (c, r) matrices, a row each. Where
+    batch_forms, v @ M.T itself."""
+    lead, c, r = v.shape[:-1], v.shape[-1], M.shape[0]
+    if batch_forms(v):
+        return v @ M.T
+    if v.is_cuda:
+        if c <= CHAIN_TERMS:
+            return _fma_chain(lambda j: v[..., j:j + 1], lambda j: M[:, j], c)
+        return exact_rows(v.reshape(-1, c).contiguous(), M).view(*lead, r)
+    if c > CHAIN_TERMS or v.dtype != torch.float32:
+        return lane_gemm(v, M)
+    w = v.reshape(-1, 1, c)
+    return torch.bmm(w, M.T.expand(w.shape[0], c, r)).view(*lead, r)
+
+
+def lane_gemm(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """lane_mm for a long contraction, or many rows a lane (the IPM's
+    G' diag(d) G, whatever its columns): on the CPU one product of at least
+    CPU_ROWS[dtype] rows (zero-padded) and two columns, which MKL computes
+    alike at any row count."""
+    if v.is_cuda or batch_forms(v):
+        return lane_mm(v, M)
+    lead, c, r = v.shape[:-1], v.shape[-1], M.shape[0]
+    w = v.reshape(-1, c)
+    n, rows = w.shape[0], CPU_ROWS.get(v.dtype, 16)
+    if n < rows:
+        w = F_.pad(w, (0, 0, 0, rows - n))
+    out = w @ (M.T if r > 1 else F_.pad(M, (0, 0, 0, 1)).T)
+    return out[:n, :r].reshape(*lead, r)
+
+
+def lane_left(M: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+    """M @ S for a shared M (r, c) and S (..., c, k): on the card lane_mm
+    with the rows of S' (each of a lane's k columns) in its rows; on the
+    CPU, whose batched product computes each lane on its own, and where
+    batch_forms, M @ S itself."""
+    return lane_mm(S.mT, M).mT if S.is_cuda and not batch_forms(S) else M @ S

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from lbmpc_tpu_torch.device import resolve_device
+from lbmpc_tpu_torch.ops.lanes import lane_mm, lane_sum_dim
 
 
 class DataWindow(NamedTuple):
@@ -135,14 +136,16 @@ def nw_estimate(xi: torch.Tensor, window: DataWindow, bandwidth: float = 0.5,
 
     xi (..., d_in) broadcasts against the window's lane axes: one query per
     lane (xi (B, d_in), X (B, q, d_in)) or a stack of queries against one
-    window (xi (K, d_in), X (q, d_in)). Returns (..., d_out).
+    window (xi (K, d_in), X (q, d_in)). Returns (..., d_out). The sums over
+    the window take ops/lanes.lane_sum_dim's form, whose order does not
+    depend on the number of lanes.
     """
     X, Y, valid = window.X, window.Y, window.valid
     sq = ((xi[..., None, :] - X) ** 2).sum(dim=-1)               # (..., q)
     kval = torch.exp(-sq / (bandwidth * bandwidth))
-    denom = ridge + (kval * valid).sum(dim=-1, keepdim=True)
+    denom = ridge + lane_sum_dim(kval * valid, -1)[..., None]
     weights = (kval * valid) / denom                              # (..., q)
-    return (weights[..., None] * Y).sum(dim=-2)                   # (..., d_out)
+    return lane_sum_dim(weights[..., None] * Y, -2)               # (..., d_out)
 
 
 def nw_estimate_and_jac(xi: torch.Tensor, window: DataWindow,
@@ -152,18 +155,19 @@ def nw_estimate_and_jac(xi: torch.Tensor, window: DataWindow,
         d yhat / d xi = (2 / bw^2) [ sum_i w_i Y_i (X_i - xi)^T
                                      - yhat (sum_j w_j (X_j - xi))^T ]
 
-    Returns (yhat (..., d_out), J (..., d_out, d_in)).
+    Returns (yhat (..., d_out), J (..., d_out, d_in)). The sums over the
+    window as in nw_estimate.
     """
     X, Y, valid = window.X, window.Y, window.valid
     diff = X - xi[..., None, :]                                   # (..., q, d_in)
     sq = (diff * diff).sum(dim=-1)                                # (..., q)
     kval = torch.exp(-sq / (bandwidth * bandwidth))
-    denom = ridge + (kval * valid).sum(dim=-1, keepdim=True)
+    denom = ridge + lane_sum_dim(kval * valid, -1)[..., None]
     weights = (kval * valid) / denom                              # (..., q)
     wY = weights[..., None] * Y                                   # (..., q, d_out)
-    yhat = wY.sum(dim=-2)
-    T1 = (wY[..., :, :, None] * diff[..., :, None, :]).sum(dim=-3)
-    s1 = (weights[..., None] * diff).sum(dim=-2)
+    yhat = lane_sum_dim(wY, -2)
+    T1 = lane_sum_dim(wY[..., :, :, None] * diff[..., :, None, :], -3)
+    s1 = lane_sum_dim(weights[..., None] * diff, -2)
     J = (2.0 / (bandwidth * bandwidth)) * (T1 - yhat[..., :, None] * s1[..., None, :])
     return yhat, J
 
@@ -180,7 +184,7 @@ def learned_step(dx: torch.Tensor, du: torch.Tensor, A: torch.Tensor,
     coordinates (ref: models/learnedModel.m:25, DMS_LBMPC_casadi.m:321-333).
     dx (..., n), du (..., m); the query broadcasts against the window as in
     nw_estimate."""
-    lin = dx @ A.T + du @ B.T
+    lin = lane_mm(dx, A) + lane_mm(du, B)
     return lin + nw_estimate(make_xi(dx, du), window, bandwidth, ridge)
 
 
@@ -188,5 +192,5 @@ def observe_residual(dx_k, du_k, dx_k1_true, A, B):
     """Data-acquisition pair (X, Y): regressor and true-vs-nominal residual
     (ref: functions/ocpLBMPC.m:14-15, DMS_LBMPC_casadi.m:204-206)."""
     x_new = make_xi(dx_k, du_k)
-    y_new = dx_k1_true - (dx_k @ A.T + du_k @ B.T)
+    y_new = dx_k1_true - (lane_mm(dx_k, A) + lane_mm(du_k, B))
     return x_new, y_new

@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from lbmpc_tpu_torch.ops.lanes import lane_mm
 from lbmpc_tpu_torch.oracle import DataWindow, observe_residual, push_batched
 
 
@@ -50,7 +51,6 @@ def run_closed_loop_batched(
     log_post_state: bool = True,
     qp_warm_solve: Callable | None = None,
     qp_init_state: Callable | None = None,
-    lane_exact: bool = False,
     x_init: torch.Tensor | None = None,
 ) -> ClosedLoopResult:
     """Advance the cohort `iterations` steps (ref: functions/ocpLBMPC.m:10-46).
@@ -58,10 +58,11 @@ def run_closed_loop_batched(
     qp_warm_solve/qp_init_state (cross-step warm chain): when given, the QP
     kernel's interior (s, z) state is threaded across time steps —
     qp_warm_solve(dx, window, z_ws, qp_state) -> (z, conv, qp_state') with
-    qp_init_state(dx_init, z0) seeding step 0 cold-identically. lane_exact:
-    the applied input in a form whose bits do not depend on B, for a solver
-    whose lanes do not either (the NMPC's; the fused fleet's on
-    pallas_full), so a lane of a batch equals its run alone. x_init (B, n): the absolute plant state to start from
+    qp_init_state(dx_init, z0) seeding step 0 cold-identically. Every
+    product takes a form whose bits do not depend on B, so with a solver
+    whose lanes do not either (the per-problem stack, the NMPC's, the fused
+    fleet's on pallas_full) a lane of a batch equals its run alone.
+    x_init (B, n): the absolute plant state to start from
     (a checkpoint's, runtime/checkpoint.resume), where x_wp + dx_init may
     round away from it; dx_init is then x_init - x_wp."""
     m = u_wp.shape[-1] if u_wp.ndim else 1
@@ -79,12 +80,9 @@ def run_closed_loop_batched(
             z, converged, qps = qp_warm_solve(dx, window, z_ws, qps)
         else:
             z, converged = solve_batch(dx, window, z_ws)
-        if lane_exact:
-            # Ks dx as products and a short sum per lane, not a matrix
-            # product, whose kernel cuBLAS picks by B
-            du = (dx[:, None, :] * Ks).sum(dim=-1) + z[:, :m]
-        else:
-            du = dx @ Ks.T + z[:, :m]
+        # Ks dx as products and a short sum per lane, not a matrix product,
+        # whose kernel cuBLAS picks by B
+        du = (dx[:, None, :] * Ks).sum(dim=-1) + z[:, :m]
         x1 = plant_step(x, du + u_wp[None, :])
         dx1 = x1 - x_wp[None, :]
         if learn:
@@ -92,7 +90,7 @@ def run_closed_loop_batched(
             window = push_batched(window, xi_new, y_new)
         z_ws = warm_start_fn(z, dx, dx1, window)
         sys_h.append(torch.cat([dx1 if log_post_state else dx, du], dim=1))
-        art_h.append((z[:, -nth:] @ Mtheta_x.T)[:, :m])
+        art_h.append(lane_mm(z[:, -nth:], Mtheta_x)[:, :m])
         conv_h.append(converged)
         x = x1
     first = torch.cat([dx_init, torch.zeros(dx_init.shape[0], m,
@@ -121,7 +119,6 @@ def run_closed_loop(
     iterations: int,
     learn: bool = True,
     log_post_state: bool = True,
-    lane_exact: bool = False,
     x_init: torch.Tensor | None = None,   # (n,)
 ) -> ClosedLoopResult:
     """One scenario's episode (ref: run_closed_loop): the cohort of one lane
@@ -134,7 +131,7 @@ def run_closed_loop(
     res = run_closed_loop_batched(
         solve_fn, plant_step, warm_start_fn, Ks, A, B, Mtheta_x, x_wp, u_wp,
         dx_init[None], z0[None], DataWindow(*(a[None] for a in window0)),
-        iterations, learn=learn, log_post_state=log_post_state, lane_exact=lane_exact,
+        iterations, learn=learn, log_post_state=log_post_state,
         x_init=None if x_init is None else x_init[None])
     return ClosedLoopResult(
         sys_history=res.sys_history[0], art_history=res.art_history[0],

@@ -94,7 +94,7 @@ class Scenario:
             p["solve"], p["plant"], p["warm"], *p["consts"], c(dx_init), c(z0),
             window0.to(p["dtype"], p["device"]),
             self.cfg.iterations if steps is None else steps, learn=p["learn"],
-            log_post_state=self.cfg.controller != "lbmpc", lane_exact=p["lane_exact"],
+            log_post_state=self.cfg.controller != "lbmpc",
             x_init=None if x_abs is None else c(x_abs))
 
     def episode_with_window(self, dx_init, window0: DataWindow) -> ClosedLoopResult:
@@ -149,7 +149,7 @@ class Scenario:
             p["solve"], p["plant"], p["warm"], *p["consts"], dx, c(z),
             window.to(p["dtype"], p["device"]),
             self.cfg.iterations if steps is None else steps, learn=p["learn"],
-            log_post_state=self.cfg.controller != "lbmpc", lane_exact=p["lane_exact"],
+            log_post_state=self.cfg.controller != "lbmpc",
             x_init=None if x_abs is None else c(x_abs))
 
 
@@ -320,10 +320,8 @@ def _episode_parts(sc: Scenario) -> dict:
               else np.zeros_like(sc.ocp.Ks))
     consts = (t(np.atleast_2d(Ks_eff)), t(sc.A), t(sc.B), t(sc.ocp.LAMBDA), t(p.x_wp),
               t([p.u_wp]))
-    # the NMPC's lanes do not depend on B (controllers/nmpc), nor then do its
-    # episodes' lanes
     return dict(solve=solve, plant=plant, warm=warm, learn=learn, consts=consts,
-                dtype=dtype, device=dev, lane_exact=cfg.controller == "nmpc")
+                dtype=dtype, device=dev)
 
 
 def build_scenario(name_or_cfg, ipm_iters: int | None = None, device=None) -> Scenario:
@@ -466,7 +464,7 @@ def build_fleet_episode(name_or_cfg, ipm_iters=None,
             solver.raw, plant, lambda z, dxu, dxn, w_: z, Ks, A, B, LAM,
             x_wp, u_wp, dx_init, torch.zeros(B0, sc.nz, dtype=f32, device=dev),
             windows0, cfg.iterations, learn=cfg.learn_online,
-            log_post_state=False, lane_exact=True, **chain_kw)
+            log_post_state=False, **chain_kw)
 
     run.solver = solver
     run.mesh = mesh

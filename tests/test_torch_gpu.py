@@ -1037,3 +1037,34 @@ def test_narrow_gn_and_shared_qp_shared_memory_is_the_hosts(cuda):
         for nz in (1, 2, 8, 9, 16, 21, 24, 25, 32):
             for lanes in range(1, qp_kernel.SHARED_MAX_LANES + 1):
                 assert k4(mI, nz, lanes) == shared_smem_bytes(mI, nz, lanes)
+
+
+def test_per_problem_solve_gives_a_lane_the_same_bits_at_any_batch(cuda):
+    """The float64 per-problem stack (build_scenario's LBMPC_N40 solver at
+    full width, N=40, q=100; sqp 2, ipm 10) on the card: every lane of a
+    batch of B equals the same lane of a batch of 8192, and lanes 0 and B-1
+    their solves alone, bit for bit, at B from 1 to 8192 (ops/lanes' forms;
+    chip_smoke.py phase 38 runs the same sweep). Float32 on the card keeps
+    the batch's own forms (ops/lanes.batch_forms)."""
+    dtype = "float64"
+    cfg = lt.make_preset("LBMPC_N40")
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, dtype=dtype,
+                                                              sqp_iters=2, ipm_iters=10))
+    sc = build_scenario(cfg, device=cuda)
+    bmax, q = 8192, cfg.oracle.q
+    rng = np.random.default_rng(16)
+    f = lambda a: torch.as_tensor(a, dtype=getattr(torch, dtype), device=cuda)
+    dx = f(np.asarray(cfg.dx_init) + 0.01 * rng.standard_normal((bmax, 4)))
+    win = DataWindow(f(0.1 * rng.standard_normal((bmax, q, 3))),
+                     f(0.001 * rng.standard_normal((bmax, q, 4))), f(np.ones((bmax, q))),
+                     torch.full((bmax,), q, dtype=torch.int32, device=cuda))
+    z = f(0.01 * rng.standard_normal((bmax, sc.nz)))
+    part = lambda i, j: (dx[i:j], DataWindow(*(a[i:j] for a in win)), z[i:j])
+    z_all, c_all = sc.solve(*part(0, bmax))
+    assert bool(torch.isfinite(z_all).all())
+    for B in (1, 2, 3, 4, 8, 16, 128, 256, 1000, 1024, 2048):
+        zb, cb = sc.solve(*part(0, B))
+        assert torch.equal(zb, z_all[:B]) and torch.equal(cb, c_all[:B]), B
+        for i in {0, B - 1}:
+            zs, cs = sc.solve(*part(i, i + 1))
+            assert torch.equal(zs[0], z_all[i]) and bool(cs[0] == c_all[i]), (B, i)

@@ -99,41 +99,46 @@ def _fleet_case():
     return t_build(cfg, device="cpu"), torch.tensor(dx0)
 
 
-def test_fleet_runner_chunked_matches_direct():
-    """The reference's test_fleet_runner_chunked_matches_direct: F=64 in
-    cohorts of 16, float32, against the direct call within 1e-6; F=50
-    raises. It runs on 4 shards, not the reference's 8: 4 were chosen so
-    that the reference's 1e-6 holds (4 lanes a shard). At 8 shards (2
-    lanes a shard) the CPU's product rounds apart by B, which the next
-    test pins."""
+@pytest.fixture(scope="module")
+def fleet_runs():
+    """_fleet_case's direct call and its split over 8 shards in cohorts of
+    16 (shared by the two tests below)."""
     sc, dx0 = _fleet_case()
-    mesh = _cpu_mesh(4)
-    run = t_sh.fleet_runner(sc.run_batch, mesh, chunk=16)
-    res = run(dx0)
-    direct = sc.run_batch(dx0)
+    return sc, dx0, sc.run_batch(dx0), t_sh.fleet_runner(sc.run_batch, _cpu_mesh(8),
+                                                         chunk=16)(dx0)
+
+
+def test_fleet_runner_chunked_matches_direct(fleet_runs):
+    """The reference's test_fleet_runner_chunked_matches_direct: F=64 in
+    cohorts of 16 over 8 shards (2 lanes a shard), float32, against the
+    direct call within 1e-6; F=50 raises. The per-problem stack's products
+    take ops/lanes' forms, so the split equals the direct call bit for bit."""
+    sc, dx0, direct, res = fleet_runs
     assert res.sys_history.shape[0] == 64
     np.testing.assert_allclose(res.sys_history.numpy(), direct.sys_history.numpy(),
                                rtol=0, atol=1e-6)
+    assert torch.equal(res.sys_history, direct.sys_history)
+    mesh = _cpu_mesh(8)
     n_conv, n_tot = t_sh.global_solve_stats(mesh, res.solver_converged.all(dim=-1))
     assert n_tot == 64 and n_conv > 0
     with pytest.raises(ValueError, match="not a multiple of chunk"):
-        run(dx0[:50])
+        t_sh.fleet_runner(sc.run_batch, mesh, chunk=16)(dx0[:50])
 
 
-def test_float32_lanes_below_four_round_apart_on_the_cpu():
-    """On 8 shards a cohort of 16 gives 2 lanes a shard, and on the CPU a
-    float32 matrix product of fewer than 4 rows (the first: dx @ Ks' in
-    the residual, (B, 4) x (4, 1)) rounds apart from the same rows in a
-    longer one; the float32 episodes then part by a few ulps of the state
-    (1.9e-6 here), above the reference's 1e-6. A split is the unsplit call
-    on each shard, so it shows this and nothing else: a shard's lanes
-    equal the direct call on those lanes alone, bit for bit."""
-    sc, dx0 = _fleet_case()
-    res = t_sh.fleet_runner(sc.run_batch, _cpu_mesh(8), chunk=16)(dx0)
-    d = (res.sys_history - sc.run_batch(dx0).sys_history).abs().max().item()
-    assert 0 < d < 1e-5, d
+def test_float32_lanes_below_four_round_apart_on_the_cpu(fleet_runs):
+    """Once the pin of a fault: on 8 shards a cohort of 16 gives 2 lanes a
+    shard, and a float32 matrix product of fewer than 4 rows (dx @ Ks' in
+    the residual, (B, 4) x (4, 1)) rounded apart on the CPU from the same
+    rows in a longer one, 1.9e-6 over the episode. ops/lanes.lane_mm now
+    gives every row the same bits at any row count, so the split equals the
+    direct call bit for bit at 2 lanes a shard and at 4 (4 shards), and a
+    shard's lanes equal the direct call on those lanes alone."""
+    sc, dx0, direct, res = fleet_runs
+    assert torch.equal(res.sys_history, direct.sys_history)
+    res4 = t_sh.fleet_runner(sc.run_batch, _cpu_mesh(4), chunk=16)(dx0)
+    assert torch.equal(res4.sys_history, direct.sys_history)
     for i in (0, 30, 62):
-        assert torch.equal(res.sys_history[i:i + 2], sc.run_batch(dx0[i:i + 2]).sys_history)
+        assert torch.equal(direct.sys_history[i:i + 2], sc.run_batch(dx0[i:i + 2]).sys_history)
 
 
 def _solver_case(factory, hard_lanes: int, **kw):

@@ -24,7 +24,7 @@ This holds each candidate form to three questions:
      plain route on the first 256 lanes, with mm and the package's form,
      beside the same runs at the other batch size.
 
-"mm" is the plain product (and the closed loop's dx @ Ks'), "package" is
+"mm" is the plain product (the closed loop keeps its one form), "package" is
 ops/lanes.exact_rows as the package has it; question 3 runs mm and the
 forms found exact. Needs K1, K2, K3w, K1w and K2w (built here from the
 checkout).
@@ -137,7 +137,6 @@ def main(argv=None) -> int:
     from lbmpc_tpu_torch.controllers import sqp_fused
     from lbmpc_tpu_torch.controllers.sqp_fused import make_lbmpc_solver_fused
     from lbmpc_tpu_torch.ops import _cuda, gn_kernel, mono_kernel, qp_kernel
-    from lbmpc_tpu_torch.runtime import scenario
     from lbmpc_tpu_torch.runtime.scenario import build_fleet_episode, build_scenario
     from lbmpc_tpu_torch.runtime.sharding import scenario_mesh, split_solver
 
@@ -167,13 +166,10 @@ def main(argv=None) -> int:
                           (1, 2, 3, 4, 7, 16, 64, 100, 256, 1000, 1024, 2048, 4096, 8192,
                            16384, 65536, 131072) if card else (1, 2, 3, 16, 64), cs, names)
 
-    loop = scenario.run_closed_loop_batched
     orig = sqp_fused.exact_rows
 
     def use(name: str) -> None:
         sqp_fused.exact_rows = orig if name == "package" else forms()[name]
-        scenario.run_closed_loop_batched = (
-            (lambda *a, **k: loop(*a, **{**k, "lane_exact": False})) if name == "mm" else loop)
 
     B = cs.BATCH if card else 16
     dx, win, _ = cs.bench_inputs(np.random.default_rng(0), B, sc.nz, dev)
