@@ -53,9 +53,9 @@ counts set to 0 just before it and read just after:
   budget, traced (the kernels' device time under their names, held to the
   launch counters) and set against the H100 roofline; checkpoint and resume
   of LBMPC_N40 at full width (a batch of 256 and one lane, resumed equal
-  to uninterrupted within 1e-12) and the float64 per-problem stack's lane
-  bits (a lane of a batch of B equals its solve alone, bit for bit, at B
-  from 1 to 8192); the tracking sandbox's episodes on the
+  to uninterrupted within 1e-12) and the per-problem stack's lane bits in
+  float64 and float32 (a lane of a batch of B equals its solve alone, bit
+  for bit, at B from 1 to 8192); the tracking sandbox's episodes on the
   card against the CPU, and response_info on the card against the CPU;
 - the multi-device layer (runtime/sharding, ops/riccati_sharded; no kernel
   of its own): the bench fused solve split over two shards of the card
@@ -66,8 +66,11 @@ counts set to 0 just before it and read just after:
   lqr_cross_sharded; the stage split at N=304, the DMS flagship's sparse GN
   at N=300 over 8 stage shards, and phase 38's batch resumed over the mesh
   (bit for bit phase 38's unsplit run);
-  the port's entry and examples; and the fused solver's refine=True (one
-  more K5c an IPM iteration), LBMPC_CHOL=xla (no K5) and jac_mode="jacfwd".
+  the port's entry and examples; the fused solver's refine=True (one
+  more K5c an IPM iteration), LBMPC_CHOL=xla (no K5) and jac_mode="jacfwd";
+  and the reference's own float32 fleet split (tests/test_runtime.py's
+  fleet_runner case: 64 lanes in cohorts of 16 over 8 shards and over 4,
+  equal to the direct call within 1e-6 and bit for bit).
 It times the kernels, their plain versions, the library yardsticks, the
 solves and the fleet steps with CUDA events (K2 and K3 at batch 2048, the
 cohort and the repair's K, with their registers, spills and lanes an SM;
@@ -122,7 +125,7 @@ CK_BATCH, CK_STEPS = 256, 20  # phase 38's checkpointed batch and steps
 LANE_BITS_B = (1, 2, 3, 4, 8, 16, 128, 256, 1000, 1024, 2048, 8192)   # phase 38's sweep
 PROTOCOL_RUNS, PROTOCOL_ITERS = 5, 20   # phase 37's solve_time_protocol
 KERNELS_PHASE = 33            # the kernels line, printed last
-LAST_PHASE = 44
+LAST_PHASE = 45
 
 
 def log(msg: str) -> None:
@@ -652,6 +655,9 @@ def run_phases(dev, card: str, kind: str, args) -> int:
         if args.stop_after >= 40:
             mesh_phases(dev, tag, args, cfg, sc, dx, win, ck)
             log(f"  wall time so far {time.time() - t_start:.1f} s")
+    if args.stop_after >= 45:
+        fleet_split_phase(dev, tag)
+        log(f"  wall time so far {time.time() - t_start:.1f} s")
     return finish(card, kind, kernels, args)
 
 
@@ -3063,11 +3069,10 @@ def checkpoint_phase(dev, tag: str):
 def lane_bits_sweep(dev, tag: str, cfg) -> None:
     """Phase 38's second part: the per-problem stack's lane bits. The
     LBMPC_N40 solve at full width (N=40, q=100; sqp 2, ipm 10: the depth
-    cut) in float64 on seeded lanes: every lane of a batch of B
-    (LANE_BITS_B) equals the same lane of the largest batch, and lanes 0
-    and B-1 their solves alone, bit for bit (ops/lanes' forms). Float32 on
-    the card keeps the batch's own forms (ops/lanes.batch_forms), so it is
-    not swept here (tools/f32_exact_forms.py sweeps it on the exact ones)."""
+    cut) in float64 and in float32 on seeded lanes: every lane of a batch
+    of B (LANE_BITS_B) equals the same lane of the largest batch, and lanes
+    0 and B-1 their solves alone, bit for bit (ops/lanes' forms, one set
+    for both dtypes)."""
     import torch
 
     from lbmpc_tpu_torch.oracle import DataWindow
@@ -3076,7 +3081,7 @@ def lane_bits_sweep(dev, tag: str, cfg) -> None:
     t0 = time.time()
     bmax, q = max(LANE_BITS_B), cfg.oracle.q
     rng = np.random.default_rng(16)
-    for dt in ("float64",):
+    for dt in ("float64", "float32"):
         c = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, dtype=dt,
                                                                 sqp_iters=2, ipm_iters=10))
         sc = build_scenario(c, device=dev)
@@ -3662,6 +3667,65 @@ def mesh_phases(dev, tag: str, args, cfg, sc, dx, win, ck) -> None:
     route_gates("jac_mode='jacfwd' vs 'manual' (bench xla solve)", zf, cf, zk, ckv)
     times[44] = time.time() - t_phase
     log(f"  phase 44 took {times[44]:.1f} s; phases 40-44 {sum(times.values()):.1f} s")
+
+
+SPLIT_FLEET_F, SPLIT_FLEET_CHUNK = 64, 16   # phase 45: tests/test_runtime.py:211-249
+
+
+def fleet_split_phase(dev, tag: str) -> None:
+    """Phase 45: the reference's own contract for a split fleet
+    (tests/test_runtime.py's test_fleet_runner_chunked_matches_direct) on
+    the card: LBMPC_N40 cut to N=8, q=8, float32, sqp 1, ipm 10, 3 steps,
+    F=64 seeded lanes; fleet_runner over 8 shards and over 4 of the card in
+    cohorts of 16 against the direct call (run_batch on the 64 lanes),
+    within the reference's 1e-6 and bit for bit; global_solve_stats over
+    the mesh; F=50 raises. The per-problem stack launches no kernel."""
+    import torch
+
+    import lbmpc_tpu_torch as lt
+    from lbmpc_tpu_torch.runtime.scenario import build_scenario
+    from lbmpc_tpu_torch.runtime.sharding import (fleet_runner, global_solve_stats,
+                                                  scenario_mesh)
+
+    t_phase = time.time()
+    log(f"phase 45: the reference's float32 fleet split on the card (LBMPC_N40 cut to N=8, "
+        f"q=8, sqp 1, ipm 10, 3 steps; F={SPLIT_FLEET_F} in cohorts of {SPLIT_FLEET_CHUNK} "
+        "over 8 and 4 shards) against the direct call")
+    cfg = lt.make_preset("LBMPC_N40", iterations=3)
+    cfg = dataclasses.replace(
+        cfg, ocp=dataclasses.replace(cfg.ocp, N=8),
+        solver=dataclasses.replace(cfg.solver, dtype="float32", sqp_iters=1, ipm_iters=10),
+        oracle=dataclasses.replace(cfg.oracle, q=8))
+    sc = build_scenario(cfg, device=dev)
+    dx0 = torch.as_tensor(np.array([-0.35, -0.4, 0.0, 0.0]) + np.random.default_rng(0)
+                          .uniform(-0.02, 0.02, (SPLIT_FLEET_F, 4)), device=dev)
+    zero_counts()
+    direct = sc.run_batch(dx0)
+    for shards in (8, 4):
+        mesh = scenario_mesh(shards)
+        res = fleet_runner(sc.run_batch, mesh, chunk=SPLIT_FLEET_CHUNK)(dx0)
+        sync(dev)
+        d = (res.sys_history - direct.sys_history).abs().max().item()
+        bits = torch.equal(res.sys_history, direct.sys_history)
+        stats = global_solve_stats(mesh, res.solver_converged.all(dim=-1))
+        log(f"  {shards} shards ({SPLIT_FLEET_CHUNK // shards} lanes a shard a cohort): "
+            f"sys_history {tuple(res.sys_history.shape)}, max |d| "
+            f"{d:.3e} from the direct call, bit for bit {bits}; global_solve_stats {stats} {tag}")
+        require(res.sys_history.shape[0] == SPLIT_FLEET_F
+                and bool(torch.isfinite(res.sys_history).all()) and d <= 1e-6,
+                f"fleet_runner over {shards} shards within 1e-6 of the direct call")
+        require(bits, f"fleet_runner over {shards} shards equals the direct call bit for bit")
+        require(stats[1] == SPLIT_FLEET_F and stats[0] > 0,
+                f"global_solve_stats over {shards} shards counts every lane, some converged")
+        try:
+            fleet_runner(sc.run_batch, mesh, chunk=SPLIT_FLEET_CHUNK)(dx0[:50])
+            raised = False
+        except ValueError as e:
+            raised = "not a multiple of chunk" in str(e)
+        require(raised, f"fleet_runner over {shards} shards refuses F=50 (not a multiple of "
+                f"{SPLIT_FLEET_CHUNK})")
+    no_kernel_launched("the reference's fleet split", "the per-problem stack has none")
+    log(f"  phase 45 took {time.time() - t_phase:.1f} s")
 
 
 def first_beyond(d, tol: float):

@@ -21,7 +21,7 @@ import torch
 from lbmpc_tpu_torch.controllers.condensed import CondensedQP
 from lbmpc_tpu_torch.controllers.sqp import _ALPHAS, sqp_solve
 from lbmpc_tpu_torch.device import resolve_device
-from lbmpc_tpu_torch.ops.lanes import lane_left, lane_mm, lane_rowsum, lane_sum, on_min_lanes
+from lbmpc_tpu_torch.ops.lanes import exact_sum, lane_left, lane_mm, lane_sum, on_min_lanes
 from lbmpc_tpu_torch.oracle import (DataWindow, make_xi, nw_estimate,
                                     nw_estimate_and_jac)
 
@@ -84,10 +84,14 @@ def make_residual_and_jac(
     u_k = Ks x_k + c_k and running stages 0..N-3 (costLBMPC.m quirk);
     family='casadi': u_k = c_k and delta-scaled running stages 0..N-1.
     The products take ops/lanes' forms, so a lane's bits do not depend on
-    the batch's size (where ops/lanes.batch_forms, they are the plain ones).
+    the batch's size; on the card their short contractions are unfused
+    (fused=False), as K1w and K3w compute them (this is their plain
+    version, ops/gn_kernel.GNPhase.plain).
     """
     dev = resolve_device(device)
     N, n, m = qp.N, qp.n, qp.m
+    mm = lambda v, M: lane_mm(v, M, fused=False)
+    left = lambda M, S: lane_left(M, S, fused=False)
     fmincon = family == "fmincon"
     nth = np.atleast_2d(np.asarray(w.LAMBDA)).shape[1]
     nz = N * m + nth
@@ -111,11 +115,11 @@ def make_residual_and_jac(
 
     def _finish(theta, xs, us, xN):
         Bsz = theta.shape[0]
-        xa = lane_mm(theta, LAM)                                    # (B, n)
-        ua = lane_mm(theta, PSI)                                    # (B, m)
-        rx = scale * lane_mm(xs[:, :n_run] - xa[:, None], Lq)
-        ru = scale * lane_mm(us[:, :n_run] - ua[:, None], Lr)
-        rP = lane_mm(xN - xa, Lp)
+        xa = mm(theta, LAM)                                         # (B, n)
+        ua = mm(theta, PSI)                                         # (B, m)
+        rx = scale * mm(xs[:, :n_run] - xa[:, None], Lq)
+        ru = scale * mm(us[:, :n_run] - ua[:, None], Lr)
+        rP = mm(xN - xa, Lp)
         rT = sqrtT * (xa - xs_ref)
         return torch.cat([rx.reshape(Bsz, -1), ru.reshape(Bsz, -1), rP, rT],
                          dim=1)
@@ -125,8 +129,8 @@ def make_residual_and_jac(
         x = dx0
         xs, us = [], []
         for k in range(N):
-            u = lane_mm(x, Ksd) + cs[:, k] if fmincon else cs[:, k]
-            x1 = (lane_mm(x, Ad) + lane_mm(u, Bd)
+            u = mm(x, Ksd) + cs[:, k] if fmincon else cs[:, k]
+            x1 = (mm(x, Ad) + mm(u, Bd)
                   + nw_estimate(make_xi(x, u), window, bandwidth, ridge))
             xs.append(x)
             us.append(u)
@@ -141,16 +145,16 @@ def make_residual_and_jac(
         xs, us, Ss, dudzs = [], [], [], []
         for k in range(N):
             if fmincon:
-                u = lane_mm(x, Ksd) + cs[:, k]
-                dudz = lane_left(Ksd, S) + Eks[k]
+                u = mm(x, Ksd) + cs[:, k]
+                dudz = left(Ksd, S) + Eks[k]
             else:
                 u = cs[:, k]
                 dudz = Eks[k].expand(Bsz, m, nz)
             gv, Jg = nw_estimate_and_jac(make_xi(x, u), window, bandwidth,
                                          ridge)
             dxidz = torch.cat([S[:, :2], dudz], dim=1)   # xi = [x0, x1, u]
-            x1 = lane_mm(x, Ad) + lane_mm(u, Bd) + gv
-            S1 = lane_left(Ad, S) + lane_left(Bd, dudz) + Jg @ dxidz
+            x1 = mm(x, Ad) + mm(u, Bd) + gv
+            S1 = left(Ad, S) + left(Bd, dudz) + Jg @ dxidz
             xs.append(x)
             us.append(u)
             Ss.append(S)
@@ -158,9 +162,9 @@ def make_residual_and_jac(
             x, S = x1, S1
         Ss = torch.stack(Ss[:n_run], 1)                   # (B, n_run, n, nz)
         dudzs = torch.stack(dudzs[:n_run], 1)             # (B, n_run, m, nz)
-        Jrx = scale * lane_left(Lq, Ss - LAM_T)
-        Jru = scale * lane_left(Lr, dudzs - PSI_T)
-        JrP = lane_left(Lp, S - LAM_T)
+        Jrx = scale * left(Lq, Ss - LAM_T)
+        Jru = scale * left(Lr, dudzs - PSI_T)
+        JrP = left(Lp, S - LAM_T)
         JrT = (sqrtT * LAM_T).expand(Bsz, n, nz)
         e = _finish(z[:, N * m:], torch.stack(xs, 1), torch.stack(us, 1), x)
         J = torch.cat([Jrx.reshape(Bsz, -1, nz), Jru.reshape(Bsz, -1, nz),
@@ -196,8 +200,8 @@ def make_lbmpc_solver(
     solver's device; `converged` is the last QP's flag, as in the reference.
     A lane's bits do not depend on the batch's size or the lane's place in
     it: the products and sums take ops/lanes' forms, and on the card a solve
-    runs at least ops/lanes.MIN_LANES lanes (on_min_lanes); float32 on the
-    card keeps the batch's own forms (ops/lanes.batch_forms).
+    runs at least ops/lanes.MIN_LANES lanes (on_min_lanes), in float32 and
+    float64 alike.
     family='fmincon': u_k = Ks x_k + c_k, running stages 0..N-3;
     family='casadi': u_k = c_k, delta-scaled running stages 0..N-1."""
     dev = resolve_device(device)
@@ -222,7 +226,7 @@ def make_lbmpc_solver(
             else:
                 tile = lambda a: a.repeat((k,) + (1,) * (a.ndim - 1))
                 e = residual(z, tile(dx0), DataWindow(*(tile(a) for a in window)))
-            return lane_rowsum(e * e)
+            return exact_sum(e * e)
 
         h = h0d + lane_mm(dx0, Hpd)
         out = sqp_solve(cost, lambda z: residual(z, dx0, window), Gd, h, z_ws,

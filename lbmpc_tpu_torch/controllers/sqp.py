@@ -24,7 +24,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from lbmpc_tpu_torch.ops.ipm import solve_qp, solve_qp_mixed
-from lbmpc_tpu_torch.ops.lanes import exact_mv, exact_sum, lane_mm, lane_mv, lane_rowsum
+from lbmpc_tpu_torch.ops.lanes import exact_mv, exact_sum, lane_mm
 
 
 class SQPResult(NamedTuple):
@@ -61,18 +61,18 @@ def sqp_solve(
     mixed=True solves each QP with solve_qp_mixed (float32 IPM + float64
     refinement). The products and sums take ops/lanes' forms, so a lane's
     bits do not depend on the batch's size (cost_fn should sum with
-    lane_rowsum too)."""
+    exact_sum too)."""
     Bsz, nz = z0.shape
     Ireg = reg * torch.eye(nz, dtype=z0.dtype, device=z0.device)
     alphas = torch.tensor(_ALPHAS, dtype=z0.dtype, device=z0.device)
     k = len(_ALPHAS)
 
     def gz(zs):
-        return lane_mm(zs, G) if G.ndim == 2 else lane_mv(
+        return lane_mm(zs, G) if G.ndim == 2 else exact_mv(
             G.repeat(zs.shape[0] // Bsz, 1, 1), zs)
 
     def violation(zs, hs):
-        return lane_rowsum(torch.clamp(gz(zs) - hs, min=0.0))
+        return exact_sum(torch.clamp(gz(zs) - hs, min=0.0))
 
     z = z0
     norms = []
@@ -85,7 +85,7 @@ def sqp_solve(
             g = torch.func.grad(lambda zz: cost_fn(zz).sum())(z)
         else:
             e, J = res_jac_fn(z)
-            g = 2.0 * lane_mv(J.transpose(1, 2), e)
+            g = 2.0 * exact_mv(J.transpose(1, 2), e)
         H = 2.0 * J.transpose(1, 2) @ J + Ireg
         # the QP in the step d: min 1/2 d'Hd + g'd  s.t.  G d <= h - G z
         hq = h - gz(z)
@@ -97,7 +97,7 @@ def sqp_solve(
         viol = violation(zs, h.repeat(k + 1, 1))
         merit = (cost_fn(zs) + rho * viol).reshape(k + 1, Bsz)
         m0, v0 = merit[0], viol[:Bsz]
-        dir_deriv = lane_rowsum(g * d) - rho * v0
+        dir_deriv = exact_sum(g * d) - rho * v0
         oks = merit[1:] <= m0 + 1e-4 * alphas[:, None] * dir_deriv
         # the first accepted alpha; the smallest if none is accepted
         idx = torch.argmax(oks.to(z.dtype), dim=0)

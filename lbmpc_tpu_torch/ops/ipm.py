@@ -20,8 +20,9 @@ keeps the reference's semantics:
     (ops/chol.py);
   - the final `converged` flag and the Farkas certificate of primal
     infeasibility (`infeasible`, `farkas_gap`).
-Plain PyTorch: no kernel. The support functions of the reference module
-serve the polytope sets, whose port is numpy, and are not ported.
+solve_qp_batched takes a G per lane, and support_function(_batched) is the
+polytope support function h_P(c) = max c'x s.t. Fx <= h as an LP on this
+solver, a direction a lane. Plain PyTorch: no kernel.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from lbmpc_tpu_torch.ops.chol import chol_batched, solve_tri_lower, solve_tri_upper_t
-from lbmpc_tpu_torch.ops.lanes import batch_forms, lane_gemm, lane_mm, lane_mv, lane_rowsum
+from lbmpc_tpu_torch.ops.lanes import exact_mv, exact_sum, lane_gemm, lane_mm, on_min_lanes
 
 
 class IPMSolution(NamedTuple):
@@ -49,9 +50,7 @@ class IPMSolution(NamedTuple):
 
 def _mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """A v for a shared (r, c) or batched (B, r, c) A and v (B, c)."""
-    if A.ndim == 3 or batch_forms(v):
-        return lane_mv(A, v)
-    return lane_mm(v, A)
+    return exact_mv(A, v) if A.ndim == 3 else lane_mm(v, A)
 
 
 def _mtv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -67,7 +66,7 @@ def _step_length(v: torch.Tensor, dv: torch.Tensor, tau: float) -> torch.Tensor:
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return lane_rowsum(a * b)
+    return exact_sum(a * b)
 
 
 def _amax_abs(a: torch.Tensor) -> torch.Tensor:
@@ -82,10 +81,10 @@ def solve_qp(H, g, G, h, iters: int = 30, tol: float = 1e-10,
     as the reference runs them at HIGHEST. chol_failed (B,) bool: see
     ops/chol.chol_batched (no device read; the caller checks the flags).
     Every product and sum takes a form of ops/lanes (lane_mm with a shared
-    matrix, lane_mv with one per lane, lane_rowsum), so a lane's bits do not
-    depend on the batch's size or the lane's place in it, on the card from
-    ops/lanes.MIN_LANES lanes up (the solvers pad to it: on_min_lanes);
-    float32 on the card keeps the batch's own forms (ops/lanes.batch_forms)."""
+    matrix, exact_mv with one per lane, exact_sum), so a lane's bits do not
+    depend on the batch's size or the lane's place in it, in either dtype,
+    on the card from ops/lanes.MIN_LANES lanes up (the solvers pad to it:
+    on_min_lanes)."""
     return _solve(H, g, G, h, iters, tol, tau, None, chol_failed)
 
 
@@ -191,12 +190,12 @@ def _solve(H, g, G, h, iters, tol, tau, init, chol_failed=None) -> IPMSolution:
     GtG = Gt @ G + (1e-12 * (1.0 + Gmax ** 2))[..., None, None] * In
     # GtG is SPD by its ridge: a Cholesky solve, which reads nothing from the
     # device when chol_failed is given (a general solve checks its pivots on
-    # the host); for a shared G, outside batch_forms, its one inverse (two
-    # triangular solves on the identity), applied as lane_mm: the two solves
-    # on the lanes' right-hand sides take a path picked by B
+    # the host); for a shared G, its one inverse (two triangular solves on
+    # the identity), applied as lane_mm: the two solves on the lanes'
+    # right-hand sides take a path picked by B
     Lg = chol_batched(GtG, chol_failed)
     Gty = _mtv(G, y)
-    if G.ndim == 2 and not batch_forms(y):
+    if G.ndim == 2:
         Li = torch.linalg.solve_triangular(Lg, In, upper=False)
         proj = lane_mm(Gty, torch.linalg.solve_triangular(Lg.mT, Li, upper=True))
     else:
@@ -211,3 +210,31 @@ def _solve(H, g, G, h, iters, tol, tau, init, chol_failed=None) -> IPMSolution:
                        dual_res=_amax_abs(rd), converged=converged, iters=first_it,
                        infeasible=infeasible, farkas_gap=farkas_gap)
 
+
+def solve_qp_batched(H, g, G, h, **kw) -> IPMSolution:
+    """solve_qp with a problem a lane: H (B, n, n), g (B, n), G (B, m, n),
+    h (B, m); kw as solve_qp's. The reference vmaps solve_qp over the four;
+    solve_qp takes a G per lane as it is."""
+    return solve_qp(H, g, G, h, **kw)
+
+
+def support_function(c, F, h, iters: int = 40) -> torch.Tensor:
+    """h_P(c) = max_x c'x s.t. Fx <= h, the polytope's support function in
+    direction c (n,): an LP (H = 0, g = -c) on solve_qp, on c's device."""
+    return support_function_batched(c[None], F, h, iters=iters)[0]
+
+
+def support_function_batched(C, F, h, iters: int = 40) -> torch.Tensor:
+    """support_function for k directions C (k, n) over one polytope Fx <= h:
+    one solve of k lanes with the shared F, each lane's bits the same at
+    any k (ops/lanes' forms, on at least MIN_LANES lanes on the card).
+    Returns (k,)."""
+    n = C.shape[-1]
+    H = torch.zeros(n, n, dtype=C.dtype, device=C.device)
+    F, h = F.to(C), h.to(C)
+
+    def lanes(C_):
+        sol = solve_qp(H, -C_, F, h.expand(C_.shape[0], -1), iters=iters)
+        return exact_sum(C_ * sol.x)
+
+    return on_min_lanes(lanes, C)

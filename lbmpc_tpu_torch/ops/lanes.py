@@ -21,18 +21,20 @@ exact_rows gives a matrix product's rows the same bits at any B; the fused
 SQP's merit and flag use it.
 
 The per-problem stack (its LBMPC and LMPC solvers, the closed loop and the
-oracle) takes the lane_* forms below, one set a device: on the card FMAs
-in order over a contraction of at most CHAIN_TERMS terms, exact_rows over
-a longer one, exact_mv, exact_sum (over the NW window's axis too: a
-reduction over an inner axis splits it by the number of outputs), and a
-solve of at least MIN_LANES lanes (on_min_lanes); on the CPU one MKL
+oracle) takes the lane_* forms below, one set a device: on the card a
+contraction of at most CHAIN_TERMS terms in order, as a product and then
+one FMA a term (a matrix product's inner loop), or in the GN phase's
+products (fused=False) each product and sum rounded on its own, as the
+wide kernels compute them; exact_rows over a longer one, exact_mv,
+exact_sum, split_sum over the NW window's axis (a reduction over an inner
+axis splits it by the number of outputs), and a solve of at least
+MIN_LANES lanes (on_min_lanes); on the CPU one MKL
 product of at least CPU_ROWS rows and two columns (a product of fewer
 rows, or of one column, takes paths that round apart by the count), a
 row's own (1, c) product over a short float32 contraction, and the
 batched products and the window's sums as they are
 (tools/split_lane_bits.py --per-problem and tests/test_torch_lane_bits.py
-sweep them). Float32 on the card keeps the batch's own products
-(batch_forms).
+sweep them). Float32 and float64 take the same forms.
 """
 
 from __future__ import annotations
@@ -140,68 +142,62 @@ def on_min_lanes(fn, *args):
     return fn(*args)
 
 
-def batch_forms(t: torch.Tensor) -> bool:
-    """Whether the per-problem stack keeps the batch's own forms for t (the
-    library's products, picked by B, and lane_sum): float32 on the card,
-    where chip_smoke.py's float32 phases (the golden episode of phase 29
-    sits at the edge of its envelope) hold with these products; one exact
-    set took phase 29 out of its envelope, the present one holds it
-    (tools/f32_exact_forms.py) but has not run through the others
-    (ROADMAP.md §3). The card's float64 and the CPU take the exact forms."""
-    return t.is_cuda and t.dtype == torch.float32
+SPLIT_CHUNK = 32
 
 
-def lane_rowsum(v: torch.Tensor) -> torch.Tensor:
-    """v.sum(dim=-1) in exact_sum's form (lane_sum's where batch_forms)."""
-    return lane_sum(v) if batch_forms(v) else exact_sum(v)
+def split_sum(v: torch.Tensor) -> torch.Tensor:
+    """v.sum(dim=-1), a row of 64 entries or more first summed in
+    zero-padded rows of SPLIT_CHUNK entries, level by level: aten's
+    reduction reads a row of fewer than 64 entries with 32 threads at any
+    number of rows (Reduce.cuh's block shape), so a row's bits do not
+    depend on the number of rows; a strided row is copied first (a sum
+    over a strided axis is split by the number of outputs)."""
+    while v.shape[-1] >= 64:
+        v = F_.pad(v, (0, -v.shape[-1] % SPLIT_CHUNK)).unflatten(-1, (-1, SPLIT_CHUNK)).sum(-1)
+    return v.contiguous().sum(dim=-1)
 
 
 def lane_sum_dim(v: torch.Tensor, dim: int) -> torch.Tensor:
-    """v.sum(dim): on the card in exact_sum's form, the summed axis moved
-    last; on the CPU, whose sums keep one order at any B, and where
-    batch_forms, v.sum(dim) itself."""
-    if v.is_cuda and not batch_forms(v):
-        return exact_sum(v.movedim(dim, -1))
+    """v.sum(dim): on the card in split_sum's form, the summed axis moved
+    last; on the CPU, whose sums keep one order at any B, v.sum(dim)
+    itself."""
+    if v.is_cuda:
+        return split_sum(v.movedim(dim, -1))
     return v.sum(dim)
-
-
-def lane_mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """A v per lane in exact_mv's form (the batched product where
-    batch_forms)."""
-    return (A @ v[..., None])[..., 0] if batch_forms(v) else exact_mv(A, v)
 
 
 # MKL: a product of fewer rows takes paths that round apart by the row
 # count (float32 below 16 rows, float64 below 4; tests/test_torch_lane_bits.py)
 CPU_ROWS = {torch.float32: 16, torch.float64: 4}
-CHAIN_TERMS = 8     # on the card, contractions up to this long run as FMAs
+CHAIN_TERMS = 8     # on the card, contractions up to this long run as _term_chain
 
 
-def _fma_chain(a, b, c: int) -> torch.Tensor:
-    """sum_j a(j) * b(j) over j < c as the first product and then one FMA a
-    term (torch.addcmul), in the order of j (a matrix product's inner loop):
-    elementwise, so no kernel is picked by the batch's size."""
+def _term_chain(a, b, c: int, fused: bool) -> torch.Tensor:
+    """sum_j a(j) * b(j) over j < c in the order of j: the first product,
+    then one FMA a term (torch.addcmul), or with fused=False each product
+    and each sum rounded on its own, as the wide kernels (K1w, K3w, built
+    with -fmad=false) compute a short contraction. Elementwise, so no
+    kernel is picked by the batch's size."""
     out = a(0) * b(0)
     for j in range(1, c):
-        out = torch.addcmul(out, a(j), b(j))
+        out = torch.addcmul(out, a(j), b(j)) if fused else out + a(j) * b(j)
     return out
 
 
-def lane_mm(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+def lane_mm(v: torch.Tensor, M: torch.Tensor, fused: bool = True) -> torch.Tensor:
     """v @ M.T, v (..., c), M (r, c) shared, with every row of v (a lane, or
     one of a lane's rows) given the same bits whatever the number of rows
     and the row's place among them. On the card a contraction of at most
-    CHAIN_TERMS entries runs as _fma_chain, a longer one as exact_rows. On
-    the CPU it is lane_gemm's product, except that a float32 contraction of
-    at most CHAIN_TERMS entries, which would pad a few rows to 16, is a
-    batched product of (1, c) x (c, r) matrices, a row each. Where
-    batch_forms, v @ M.T itself."""
+    CHAIN_TERMS entries runs as _term_chain (fused=False: unfused, the GN
+    phase's products, K1w's twin), a longer one as exact_rows. On the CPU
+    it is lane_gemm's product, except that a float32 contraction of at most
+    CHAIN_TERMS entries, which would pad a few rows to 16, is a batched
+    product of (1, c) x (c, r) matrices, a row each; fused has no effect
+    there."""
     lead, c, r = v.shape[:-1], v.shape[-1], M.shape[0]
-    if batch_forms(v):
-        return v @ M.T
     if v.is_cuda:
         if c <= CHAIN_TERMS:
-            return _fma_chain(lambda j: v[..., j:j + 1], lambda j: M[:, j], c)
+            return _term_chain(lambda j: v[..., j:j + 1], lambda j: M[:, j], c, fused)
         return exact_rows(v.reshape(-1, c).contiguous(), M).view(*lead, r)
     if c > CHAIN_TERMS or v.dtype != torch.float32:
         return lane_gemm(v, M)
@@ -214,7 +210,7 @@ def lane_gemm(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     G' diag(d) G, whatever its columns): on the CPU one product of at least
     CPU_ROWS[dtype] rows (zero-padded) and two columns, which MKL computes
     alike at any row count."""
-    if v.is_cuda or batch_forms(v):
+    if v.is_cuda:
         return lane_mm(v, M)
     lead, c, r = v.shape[:-1], v.shape[-1], M.shape[0]
     w = v.reshape(-1, c)
@@ -225,9 +221,9 @@ def lane_gemm(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     return out[:n, :r].reshape(*lead, r)
 
 
-def lane_left(M: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+def lane_left(M: torch.Tensor, S: torch.Tensor, fused: bool = True) -> torch.Tensor:
     """M @ S for a shared M (r, c) and S (..., c, k): on the card lane_mm
-    with the rows of S' (each of a lane's k columns) in its rows; on the
-    CPU, whose batched product computes each lane on its own, and where
-    batch_forms, M @ S itself."""
-    return lane_mm(S.mT, M).mT if S.is_cuda and not batch_forms(S) else M @ S
+    (with `fused`) with the rows of S' (each of a lane's k columns) in its
+    rows; on the CPU, whose batched product computes each lane on its own,
+    M @ S itself."""
+    return lane_mm(S.mT, M, fused).mT if S.is_cuda else M @ S

@@ -96,6 +96,24 @@ def support(c: np.ndarray, F: np.ndarray, h: np.ndarray) -> float:
     return float(val.value)
 
 
+def support_batch(C: np.ndarray, F: np.ndarray, h: np.ndarray) -> np.ndarray:
+    """max c'x s.t. Fx <= h for each row c of C (K, n) via the native IPM,
+    one call for the K directions: (K,)."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("native polylp unavailable")
+    C = np.ascontiguousarray(C, float)
+    F = np.ascontiguousarray(F, float)
+    h = np.ascontiguousarray(h, float)
+    K, n = C.shape
+    m = F.shape[0]
+    if F.shape != (m, n) or h.shape != (m,):
+        raise ValueError(f"support_batch: C {C.shape}, F {F.shape} and h {h.shape} disagree")
+    vals = np.empty(K)
+    lib.polylp_support_batch(n, m, K, _ptr(C), _ptr(F), _ptr(h), _ptr(vals))
+    return vals
+
+
 def min_hrep_mask(F: np.ndarray, h: np.ndarray, tol: float = 1e-9) -> np.ndarray:
     """Boolean keep-mask of irredundant rows, computed natively."""
     lib = get_lib()

@@ -1039,14 +1039,13 @@ def test_narrow_gn_and_shared_qp_shared_memory_is_the_hosts(cuda):
                 assert k4(mI, nz, lanes) == shared_smem_bytes(mI, nz, lanes)
 
 
-def test_per_problem_solve_gives_a_lane_the_same_bits_at_any_batch(cuda):
-    """The float64 per-problem stack (build_scenario's LBMPC_N40 solver at
-    full width, N=40, q=100; sqp 2, ipm 10) on the card: every lane of a
-    batch of B equals the same lane of a batch of 8192, and lanes 0 and B-1
-    their solves alone, bit for bit, at B from 1 to 8192 (ops/lanes' forms;
-    chip_smoke.py phase 38 runs the same sweep). Float32 on the card keeps
-    the batch's own forms (ops/lanes.batch_forms)."""
-    dtype = "float64"
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_per_problem_solve_gives_a_lane_the_same_bits_at_any_batch(cuda, dtype):
+    """The per-problem stack (build_scenario's LBMPC_N40 solver at full
+    width, N=40, q=100; sqp 2, ipm 10) on the card, in each dtype: every
+    lane of a batch of B equals the same lane of a batch of 8192, and lanes
+    0 and B-1 their solves alone, bit for bit, at B from 1 to 8192
+    (ops/lanes' forms; chip_smoke.py phase 38 runs the same sweep)."""
     cfg = lt.make_preset("LBMPC_N40")
     cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, dtype=dtype,
                                                               sqp_iters=2, ipm_iters=10))

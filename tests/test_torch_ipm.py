@@ -286,3 +286,82 @@ def test_lane_sum_sums_every_row_alike():
         assert torch.equal(lane_sum(same), lane_sum(same)[:1].expand(5))
         wide = torch.tensor(rng.standard_normal((4, n + 3)), dtype=torch.float32)[:, 1:n + 1]
         assert torch.equal(lane_sum(wide), lane_sum(wide.contiguous()))
+
+
+def _random_qp(rng, n, m):
+    """tests/test_ipm.py's strictly convex QP with a bounded feasible set
+    (a box and random cuts)."""
+    A = rng.standard_normal((n, n))
+    H = A @ A.T + n * np.eye(n)
+    g = rng.standard_normal(n)
+    G = np.vstack([np.eye(n), -np.eye(n), rng.standard_normal((m, n))])
+    h = np.concatenate([np.full(2 * n, 5.0), rng.uniform(1.0, 3.0, m)])
+    return H, g, G, h
+
+
+def test_solve_qp_batched_matches_reference_and_each_lane_alone():
+    """The reference's test_batched_matches_loop: 16 random QPs, a G per
+    lane. ops/ipm.solve_qp_batched against lbmpc_tpu's (vmapped solve_qp)
+    within 1e-9 in float64, every lane converged; each lane equals its own
+    solve alone (solve_qp_batched on that lane) bit for bit, and solve_qp
+    with its G shared within 1e-9, as the reference holds its loop."""
+    rng = np.random.default_rng(7)
+    Hb, gb, Gb, hb = (np.stack(a) for a in zip(*(_random_qp(rng, 5, 6) for _ in range(16))))
+    ref = j_ipm.solve_qp_batched(*map(jnp.asarray, (Hb, gb, Gb, hb)))
+    t = lambda a: torch.tensor(a, dtype=torch.float64)
+    H, g, G, h = map(t, (Hb, gb, Gb, hb))
+    got = t_ipm.solve_qp_batched(H, g, G, h)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=0, atol=1e-9)
+    np.testing.assert_array_equal(got.converged.numpy(), np.asarray(ref.converged))
+    assert bool(got.converged.all())
+    for i in range(16):
+        alone = t_ipm.solve_qp_batched(H[i:i + 1], g[i:i + 1], G[i:i + 1], h[i:i + 1])
+        assert torch.equal(alone.x[0], got.x[i]) and torch.equal(alone.mu[0], got.mu[i]), i
+        single = t_ipm.solve_qp(H[i], g[i], G[i], h[i])
+        np.testing.assert_allclose(single.x.numpy(), got.x[i].numpy(), rtol=0, atol=1e-9)
+
+
+def _support_cases():
+    """The unit box in R^4 with tests/test_ipm.py's 12 directions, and a
+    bounded random polytope in R^5 (tests/test_ipm.py's LP) with 8."""
+    n = 4
+    box = (np.vstack([np.eye(n), -np.eye(n)]), np.ones(2 * n),
+           np.random.default_rng(0).standard_normal((12, n)))
+    rng = np.random.default_rng(3)
+    n = 5
+    F = np.vstack([np.eye(n), -np.eye(n), rng.standard_normal((10, n))])
+    h = np.concatenate([np.full(2 * n, 2.0), rng.uniform(0.5, 2.0, 10)])
+    return {"box": box, "random": (F, h, rng.standard_normal((8, n)))}
+
+
+@pytest.mark.parametrize("case", ["box", "random"])
+def test_support_function_matches_reference(case):
+    """ops/ipm.support_function_batched against lbmpc_tpu's within 1e-8 in
+    float64 (on the unit box also against |c|_1, the reference's
+    test_support_function_box); support_function on one direction equals
+    that direction's lane."""
+    F, h, C = _support_cases()[case]
+    ref = np.asarray(j_ipm.support_function_batched(*map(jnp.asarray, (C, F, h))))
+    t = lambda a: torch.tensor(a, dtype=torch.float64)
+    got = t_ipm.support_function_batched(t(C), t(F), t(h))
+    assert got.shape == (C.shape[0],) and got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-8)
+    if case == "box":
+        np.testing.assert_allclose(got.numpy(), np.abs(C).sum(axis=1), rtol=0, atol=1e-8)
+    one = t_ipm.support_function(t(C[2]), t(F), t(h))
+    assert one.shape == () and torch.equal(one, got[2])
+
+
+def test_support_function_float32_lane_bits_do_not_depend_on_k():
+    """Float32 on the CPU: each of 16 directions over the random polytope
+    gets the same bits from a solve of its first k directions, k = 1, 2, 3
+    and 16 (ops/lanes' forms), and the values stay within float32's class
+    (2e-4) of the float64 ones."""
+    F, h, C = _support_cases()["random"]
+    C = np.vstack([C, np.random.default_rng(17).standard_normal((8, C.shape[1]))])
+    t = lambda a: torch.tensor(a, dtype=torch.float32)
+    full = t_ipm.support_function_batched(t(C), t(F), t(h))
+    for k in (1, 2, 3, 16):
+        assert torch.equal(t_ipm.support_function_batched(t(C[:k]), t(F), t(h)), full[:k]), k
+    f64 = t_ipm.support_function_batched(*(torch.tensor(a) for a in (C, F, h)))
+    np.testing.assert_allclose(full.double().numpy(), f64.numpy(), rtol=0, atol=2e-4)

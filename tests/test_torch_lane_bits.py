@@ -158,24 +158,27 @@ def test_lane_mm_rows_do_not_depend_on_the_row_count(dtype, c, r):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_fma_chain_and_the_batched_forms_are_the_plain_products(dtype):
-    """The card's form of a short contraction (a product, then FMAs in
-    order: _fma_chain, run here on CPU tensors) is the product within
-    roundoff, and a row's bits do not depend on the rows beside it; on the
-    CPU lane_left is the batched product itself; lane_sum_dim (the NW
-    window's sums) is the sum within roundoff in the card's form, its rows'
-    bits independent of the rows beside them, and the sum itself on the
-    CPU."""
+    """The card's forms of a short contraction (a product, then FMAs in
+    order, or each product and sum rounded: _term_chain, run here on CPU
+    tensors) are the product within roundoff, and a row's bits do not
+    depend on the rows beside it; on the CPU lane_left is the batched
+    product itself;
+    lane_sum_dim (the NW window's sums) is the sum within roundoff in the
+    card's form, its rows' bits independent of the rows beside them, and
+    the sum itself on the CPU."""
     g = torch.Generator().manual_seed(3)
     v, M = torch.randn(33, 7, 4, generator=g, dtype=dtype), torch.randn(5, 4, generator=g,
                                                                       dtype=dtype)
     tol = 1e-14 if dtype == torch.float64 else 1e-5
-    rows = lambda w: lanes._fma_chain(lambda j: w[..., j:j + 1], lambda j: M[:, j], 4)
-    fm = rows(v)
-    assert (fm - v @ M.T).abs().max() <= tol
-    for B in (1, 2, 5, 17):
-        assert torch.equal(rows(v[3:3 + B]), fm[3:3 + B])
+    for fused in (True, False):
+        rows = lambda w: lanes._term_chain(lambda j: w[..., j:j + 1], lambda j: M[:, j], 4,
+                                           fused)
+        fm = rows(v)
+        assert (fm - v @ M.T).abs().max() <= tol
+        for B in (1, 2, 5, 17):
+            assert torch.equal(rows(v[3:3 + B]), fm[3:3 + B])
     w = torch.randn(33, 140, 4, 3, generator=g, dtype=dtype)
-    card = lambda x: lanes.exact_sum(x.movedim(1, -1))    # lane_sum_dim's card form
+    card = lambda x: lanes.split_sum(x.movedim(1, -1))    # lane_sum_dim's card form
     ws = card(w)
     assert (ws - w.sum(1)).abs().max() <= 30 * tol
     for B in (1, 2, 5, 17):

@@ -23,8 +23,7 @@ controllers/sqp, ops/ipm and ops/chol) at the batch sizes of --batches:
      the largest B (CUDA events);
   2. the solve in float64 and in float32: lanes 0, B/2 and B-1 of a batch
      of B against each lane's solve alone, bit for bit, with the origins
-     (as above) at the first B that parts, up to B=256 (float32 on the card
-     keeps the batch's own products, ops/lanes.batch_forms, and parts);
+     (as above) at the first B that parts, up to B=256;
   3. a 5-step episode (run_batch): the lanes of a batch against their runs
      alone.
 --cost times what the exact forms cost (host clock, CUDA synchronized):
@@ -185,15 +184,17 @@ def main(argv=None) -> int:
 
 PER_PROBLEM_FORMS = """the candidate forms, by operation:
   rows (v @ M.T, M shared): mm (plain), lane_mm (the package: on the card
-    FMAs up to CHAIN_TERMS terms, else exact_rows), exact_rows, fma (a
-    product, then FMAs in order);
+    a product, then FMAs in order, up to CHAIN_TERMS terms, else
+    exact_rows), exact_rows, fma (that chain at any length), unfused (each
+    product and sum rounded in order: the GN phase's, fused=False);
   per lane (A @ X): bmm (plain, the package), min2 (at least MIN_LANES
     lanes: the solvers' padding on the card), chunk (the batched product in
     zero-padded chunks of 2048 lanes);
   per-lane matrix-vector: bmm, exact_mv (the package);
   factor and solves: plain, min2 (the package);
   the NW value and Jacobian, its sums over the window: sum (v.sum(dim)),
-    exact (exact_sum over the axis moved last: lanes.lane_sum_dim)."""
+    exact (exact_sum over the axis moved last), split (split_sum over the
+    axis moved last: lanes.lane_sum_dim)."""
 
 
 def _chunked(fn, chunk: int, *xs):
@@ -247,8 +248,10 @@ def per_problem_ops(dev, batches, cs, sc, dtype):
     ne = 198 if sc.qp.N == 40 else 5 * (sc.qp.N - 2) + 8
     rows = {"mm": lambda v, M: v @ M.T, "lane_mm": lanes.lane_mm,
             "exact_rows": lambda v, M: lanes.exact_rows(v.contiguous(), M),
-            "fma": lambda v, M: lanes._fma_chain(lambda j: v[..., j:j + 1],
-                                                 lambda j: M[:, j], v.shape[-1])}
+            "fma": lambda v, M: lanes._term_chain(lambda j: v[..., j:j + 1],
+                                                  lambda j: M[:, j], v.shape[-1], True),
+            "unfused": lambda v, M: lanes._term_chain(lambda j: v[..., j:j + 1],
+                                                      lambda j: M[:, j], v.shape[-1], False)}
     cases, plains = [], {}
     for what, M in (("Ks", Ks), ("A", A), ("B'", Bd.T), ("Hp", Hp), ("G", G), ("G'", G.T)):
         v = rnd(bmax, M.shape[1])
@@ -301,7 +304,8 @@ def per_problem_ops(dev, batches, cs, sc, dtype):
                      torch.full((bmax,), q, dtype=torch.int32, device=dev))
     xi = 0.1 * rnd(bmax, 3)
     for name, wsum in (("sum", lambda v, d: v.sum(d)),
-                       ("exact", lambda v, d: lanes.exact_sum(v.movedim(d, -1)))):
+                       ("exact", lambda v, d: lanes.exact_sum(v.movedim(d, -1))),
+                       ("split", lambda v, d: lanes.split_sum(v.movedim(d, -1)))):
         cases.append((f"nw_estimate_and_jac (q={q})", name,
                       lambda sl=None, wsum=wsum: _nw_with(wsum, xi[sl],
                                                           DataWindow(*(w[sl] for w in win))),
